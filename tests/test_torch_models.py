@@ -1,0 +1,140 @@
+"""Port: FISRnet and PWC-Net against the reference's TF graphs (the TF-oracle
+fixtures, same bounds as tests/test_tf_oracle.py) and against the JAX
+package's models on the same weights.
+
+Measured max |diff| (f32, CPU): forward.npz 4.1e-8 (bound 5e-7);
+pwc_forward.npz 2.7e-8 per level (bound 2e-7), 8.8e-8 on flow_pred (bound
+5e-7); FISRnet ch=8 vs fisrnet.apply 3.0e-8, PWC-Net (4 levels, d=2, plain
+glorot weights, flows up to 1.7) vs pwcnet.apply 6.0e-6 (bound 1e-4, the
+whole-model bound).
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from fisr_tpu.models import fisrnet as jfisrnet
+from fisr_tpu.models import pwcnet as jpwcnet
+from fisr_tpu_torch.convert import params
+from fisr_tpu_torch.convert.oracle import deterministic_tf_vars, tf_vars_digest
+from fisr_tpu_torch.models import fisrnet, pwcnet
+
+torch.set_num_threads(1)
+FIX = os.path.join(os.path.dirname(__file__), "fixtures", "tf_oracle")
+SMALL = dict(pyr_lvls=4, flow_pred_lvl=2, search_range=2)
+
+
+def _manifest(name):
+    with open(os.path.join(FIX, name)) as f:
+        return json.load(f)
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def test_fisrnet_matches_reference_tf_graph():
+    shapes = params._tf_shapes(fisrnet.FISRnet(device="cpu"), params.fisrnet_name_map())
+    tf_vars = deterministic_tf_vars(shapes)
+    assert tf_vars_digest(tf_vars) == _manifest("manifest.json")["weights_digest"]
+    model = params.from_tf_vars(tf_vars, "fisrnet", device="cpu")
+    assert fisrnet.param_count(model) == 48_316_251
+    z = np.load(os.path.join(FIX, "forward.npz"))
+    with torch.no_grad():
+        preds = fisrnet.apply(model, torch.from_numpy(z["input"]))
+    for lvl, got in enumerate(preds, 1):
+        np.testing.assert_allclose(got.numpy(), z[f"pred_l{lvl}"], rtol=0, atol=5e-7,
+                                   err_msg=f"pred_l{lvl} vs TF graph")
+
+
+def test_pwcnet_matches_reference_tf_graph():
+    cfg = pwcnet.PWCNetConfig(cost_volume_impl="plain")
+    model = params.deterministic_pwcnet(cfg, device="cpu")
+    shapes = params._tf_shapes(model, params.pwcnet_name_map())
+    assert tf_vars_digest(deterministic_tf_vars(shapes)) == \
+        _manifest("pwc_manifest.json")["weights_digest"]
+    z = np.load(os.path.join(FIX, "pwc_forward.npz"))
+    x = torch.from_numpy(z["input"])
+    with torch.no_grad():
+        pred, pyr = pwcnet.apply(model, x[:, 0], x[:, 1], cfg)
+    for lvl, flow in zip(range(6, 1, -1), pyr):
+        np.testing.assert_allclose(flow.numpy(), z[f"pyr_lvl{lvl}"], rtol=0, atol=2e-7,
+                                   err_msg=f"pyramid level {lvl}")
+    np.testing.assert_allclose(pred.numpy(), z["flow_pred"], rtol=0, atol=5e-7)
+
+
+def _small_fisr_tree():
+    """ch=8 FISRnet tree on the oracle generator's damped weights (plain
+    glorot weights blow level 3 up to O(10), where f32 noise alone passes
+    1e-4); converted by the JAX package's own name map."""
+    from fisr_tpu.convert.tf_import import convert_fisrnet, export_fisrnet
+
+    shapes = {n: a.shape for n, a in export_fisrnet(
+        jfisrnet.init_params(jax.random.PRNGKey(0), ch=8)).items()}
+    return convert_fisrnet(deterministic_tf_vars(shapes))
+
+
+def test_fisrnet_matches_jax_apply():
+    tree = _small_fisr_tree()
+    model = params.fisrnet_from_jax(tree, device="cpu")
+    x = np.random.default_rng(0).uniform(0, 1, size=(1, 32, 64, 29)).astype(np.float32)
+    want = jfisrnet.apply(tree, jnp.asarray(x))
+    with torch.no_grad():
+        got = model(torch.from_numpy(x))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-4)
+
+
+def test_pwcnet_matches_jax_apply():
+    jcfg = jpwcnet.PWCNetConfig(**SMALL, cost_volume_impl="xla")
+    tree = jpwcnet.init_params(jax.random.PRNGKey(1), jcfg)
+    cfg = pwcnet.PWCNetConfig(**SMALL)
+    model = params.pwcnet_from_jax(_np_tree(tree), cfg, device="cpu")
+    rng = np.random.default_rng(1)
+    a, b = (rng.uniform(0, 1, size=(2, 32, 48, 3)).astype(np.float32) for _ in range(2))
+    want, want_pyr = jpwcnet.apply(tree, jnp.asarray(a), jnp.asarray(b), jcfg)
+    with torch.no_grad():
+        got, got_pyr = model(torch.from_numpy(a), torch.from_numpy(b))
+    for g, w in zip(got_pyr, want_pyr):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-4)
+
+
+def test_param_names_follow_jax_key_paths_and_round_trip():
+    tree = _np_tree(jpwcnet.init_params(jax.random.PRNGKey(2),
+                                        jpwcnet.PWCNetConfig(**SMALL)))
+    model = params.pwcnet_from_jax(tree, pwcnet.PWCNetConfig(**SMALL), device="cpu")
+    names = set(dict(model.named_parameters()))
+    assert {"feat.level_1.a.weight", "flow.level_4.conv0.weight",
+            "ctx.level_2.dc7.bias", "up.level_3.feat.weight"} <= names
+    # TF conv2d_transpose [4, 4, out, in] -> torch [in, out, 4, 4]
+    assert tuple(model.up["level_3"]["feat"].weight.shape) == tree["up"]["level_3"]["feat"]["w"].shape[::-1][:2] + (4, 4)
+    back = params.to_jax_tree(model)
+    flat = jax.tree_util.tree_leaves_with_path(tree)
+    for path, leaf in flat:
+        node = back
+        for k in path:
+            node = node[k.key]
+        np.testing.assert_array_equal(node, leaf)
+
+
+def test_from_tf_vars_rejects_incomplete_or_misshapen_trees():
+    shapes = params._tf_shapes(pwcnet.PWCNet(pwcnet.PWCNetConfig(**SMALL), device="cpu"),
+                               params.pwcnet_name_map(4, 2))
+    tf_vars = deterministic_tf_vars(shapes)
+    cfg = pwcnet.PWCNetConfig(**SMALL)
+    params.from_tf_vars(tf_vars, "pwcnet", cfg, device="cpu")
+    with pytest.raises(KeyError):
+        params.from_tf_vars({k: v for k, v in tf_vars.items() if "ctxt" not in k},
+                            "pwcnet", cfg, device="cpu")
+    bad = dict(tf_vars)
+    bad["pwcnet/featpyr/conv1a/kernel"] = np.zeros((3, 3, 4, 16), np.float32)
+    with pytest.raises(ValueError, match="shape"):
+        params.from_tf_vars(bad, "pwcnet", cfg, device="cpu")
