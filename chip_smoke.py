@@ -5,18 +5,24 @@
 
 Phases (any failure raises and exits non-zero):
 1. build  - nvcc builds every kernel of the fused video path from
-   fisr_tpu_torch/csrc/ (one nvcc per source, all started together).
-2. kernel - the cost-volume kernel against its plain PyTorch version on the
-   card at the five PWC-Net level shapes of a 1024x1920 window (B=2, d=4,
-   f32 and bf16), at one ragged shape (d=2, odd W, C=3), and its gradient;
-   kernel and plain version timed with CUDA events at the level shapes.
+   fisr_tpu_torch/csrc/ (one nvcc per source, all started together); ptxas
+   must report no spills for the bf16 tensor-core kernel.
+2. kernel - the cost-volume kernels (bf16: mma.sync, f32: FMA) against the
+   plain PyTorch version on the card at the five PWC-Net level shapes of a
+   1024x1920 window (B=2, d=4), at ragged shapes (d=2 and 4, odd W and H,
+   C=3, 20, 196), and the gradient. At the level shapes the kernel is timed
+   with CUDA events twice: replaying a CUDA graph of launches (`ms`, the
+   card's time alone) and call by call through the wrapper (`call_ms`, which
+   at the small levels is the host's time to launch); the plain version call
+   by call.
 3. small  - make_fused_video_step at 64x64 with full-width weights in f32,
    kernel against plain version (TF32 off), and the port's PWC-Net and
    FISRnet on the card against the TF-oracle fixtures of tests/fixtures/.
 4. full   - run_video_pipeline(fused=True) on 4 synthetic 1024x1920 YUV
    PNG frames, full-width FISRnet (ch=64) and PWC-Net lg-6-2, bf16,
    flow_upscale=2: 6 outputs of 2048x3840, 15 cost-volume launches
-   (3 pairs x 5 levels); then per-pair and per-window times and peak memory.
+   (3 pairs x 5 levels, all of the bf16 variant); then per-pair and per-window
+   times and peak memory.
 
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -41,6 +47,9 @@ WINDOW = (1024, 1920)
 FLOW_UPSCALE = 2
 D = 4
 LEVEL_CHANNELS = {2: 32, 3: 64, 4: 96, 5: 128, 6: 196}
+# the bf16 kernel's time for one frame pair's five levels before it moved to the
+# tensor cores (this script, NVIDIA H100 80GB HBM3, 700.00 W)
+MS_BF16_FMA_KERNEL = 2.744
 SMALL_TOL = 1e-4   # kernel vs plain path through both networks, outputs in [0, 1]
 ORACLE_TOL = 1e-5  # card (f32, TF32 off) vs the TF-oracle fixtures
 
@@ -67,6 +76,18 @@ def time_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(stop) / reps
 
 
+def graph_time_ms(fn, reps=20, replays=5):
+    """Device time of one call: `reps` calls captured in a CUDA graph and
+    replayed, so the host's launch cost is not in the number."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return time_ms(graph.replay, reps=replays, warmup=1) / reps
+
+
 def cv_bound_ms(shape, dtype):
     """Least time for one cost volume: inputs read once, output written once
     over HBM bandwidth, or 2*81*C flops a pixel over the dtype's peak."""
@@ -85,8 +106,10 @@ def phase_build():
     build.build_all(["cost_volume"])
     log(f"[build] kernels built in {time.perf_counter() - t0:.2f} s into {build.BUILD_DIR}")
     for name, info in build.BUILD_LOG.items():
-        regs = [ln.strip() for ln in info["ptxas"].splitlines() if "registers" in ln]
-        log(f"[build] {name}: {'; '.join(regs)}")
+        for entry, spills, regs in build.ptxas_report(info["ptxas"]):
+            log(f"[build] {name}: {entry}: {spills}; {regs}")
+            if "mma_bf16" in entry and "0 bytes spill stores, 0 bytes spill loads" not in spills:
+                raise AssertionError(f"{entry} spills registers: {spills}")
 
 
 def phase_kernel():
@@ -115,21 +138,24 @@ def phase_kernel():
             tag = "f32" if dtype == torch.float32 else "bf16"
             bound, by = cv_bound_ms(shape, dtype)
             row.update({f"{tag}_err": err,
-                        f"{tag}_ms": time_ms(lambda: kernel.cost_volume_cuda(a, b, D)),
+                        f"{tag}_ms": graph_time_ms(lambda: kernel.cost_volume_cuda(a, b, D)),
+                        f"{tag}_call_ms": time_ms(lambda: kernel.cost_volume_cuda(a, b, D)),
                         f"{tag}_plain_ms": time_ms(lambda: plain(a, b, D), reps=3, warmup=1),
                         f"{tag}_bound_ms": bound, f"{tag}_bound_by": by})
         levels.append(row)
         log(f"[kernel] {json.dumps(row)}")
+    ragged = [((2, 37, 53, 3), 2), ((2, 37, 53, 3), 4), ((2, 9, 131, 196), 4),
+              ((1, 5, 40, 20), 4), ((1, 1, 1, 1), 4)]
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (2, 4):
-            a = torch.randn((2, 37, 53, 3), device=dev, generator=g).to(dtype)
-            b = torch.randn((2, 37, 53, 3), device=dev, generator=g).to(dtype)
+        for shape, d in ragged:
+            a = torch.randn(shape, device=dev, generator=g).to(dtype)
+            b = torch.randn(shape, device=dev, generator=g).to(dtype)
             got, want = kernel.cost_volume_cuda(a, b, d).float(), plain(a, b, d).float()
             err = (got - want).abs().max().item()
             ok = (torch.allclose(got, want, rtol=1e-5, atol=1e-5) if dtype == torch.float32
                   else bf16_ok(got, want))
             if not ok:
-                raise AssertionError(f"ragged cost volume d={d} {dtype}: max |diff| {err}")
+                raise AssertionError(f"ragged cost volume {shape} d={d} {dtype}: max |diff| {err}")
             max_err = max(max_err, err)
     a = torch.randn((1, 8, 12, 4), device=dev, generator=g, requires_grad=True)
     b = torch.randn((1, 8, 12, 4), device=dev, generator=g, requires_grad=True)
@@ -209,6 +235,7 @@ def phase_full(fisr, pwc):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernel.LAUNCHES = 0
+        kernel.LAUNCHES_BY_VARIANT.update(mma_bf16=0, fma_f32=0)
         t0 = time.perf_counter()
         with torch.inference_mode():
             outs = run_video_pipeline(fisr, pwc, folder, out_folder=os.path.join(tmp, "out"),
@@ -218,8 +245,9 @@ def phase_full(fisr, pwc):
         seconds = time.perf_counter() - t0
         launches = kernel.LAUNCHES
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        if launches != 15:
-            raise AssertionError(f"main path made {launches} cost-volume launches, want 15")
+        if launches != 15 or kernel.LAUNCHES_BY_VARIANT != {"mma_bf16": 15, "fma_f32": 0}:
+            raise AssertionError(f"main path made {launches} cost-volume launches "
+                                 f"({kernel.LAUNCHES_BY_VARIANT}), want 15, all mma_bf16")
         if len(outs) != 6 or not all(os.path.exists(p) for p in outs):
             raise AssertionError(f"pipeline wrote {len(outs)} outputs: {outs}")
         for p in sorted(set(outs))[:2]:
@@ -273,12 +301,14 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60, check=True)
     log(smi.stdout.strip().splitlines()[0])
     log(json.dumps({"kernels": [{
-        "name": "cost_volume", "route": "cuda",
+        "name": "cost_volume", "route": "cuda", "variant": "mma_bf16",
         "source": "fisr_tpu_torch/csrc/cost_volume.cu",
         "replaces": "fisr_tpu/kernels/cost_volume_pallas.py:34",
         "launches": launches, "max_abs_err": max_err,
         # one frame pair's five levels (levels 6..2) in bf16, the main path's dtype
         "ms": sum(r["bf16_ms"] for r in levels),
+        "call_ms": sum(r["bf16_call_ms"] for r in levels),
+        "ms_pr1": MS_BF16_FMA_KERNEL,
         "plain_ms": sum(r["bf16_plain_ms"] for r in levels),
         "bound_ms": sum(r["bf16_bound_ms"] for r in levels),
         "bound_by": "bytes" if all(r["bf16_bound_by"] == "bytes" for r in levels) else "operations",

@@ -17,7 +17,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_all", "load", "BUILD_LOG"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_all", "load", "ptxas_report", "BUILD_LOG"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -71,6 +71,21 @@ def build_all(names) -> dict:
         if failed:
             raise RuntimeError("\n".join(failed))
     return targets
+
+
+def ptxas_report(ptxas: str) -> list:
+    """(entry function, its spill line, its register line) for every kernel in
+    the output of `nvcc -Xptxas -v` (BUILD_LOG[name]["ptxas"])."""
+    out, entry, spills = [], "", ""
+    for line in ptxas.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            entry, spills = line.split("'")[1], ""
+        elif "spill stores" in line:
+            spills = line
+        elif "Used" in line and "registers" in line:
+            out.append((entry, spills, line.split(":", 1)[1].strip()))
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

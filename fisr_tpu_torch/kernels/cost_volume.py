@@ -1,6 +1,10 @@
 """PWC-Net cost volume on the card: wrapper of fisr_tpu_torch/csrc/cost_volume.cu,
 the Hopper kernel that replaces fisr_tpu/kernels/cost_volume_pallas.py.
 
+The library holds two kernels, chosen by type alone: bf16 pairs take the
+tensor-core kernel (a banded `mma.sync` product, variant "mma_bf16"), f32
+pairs the CUDA-core kernel (variant "fma_f32").
+
 `cost_volume` takes the kernel for CUDA tensors and the plain version
 (fisr_tpu_torch/ops/cost_volume.py) for CPU tensors; `cost_volume_cuda`
 takes the kernel or raises. Nothing falls back: a CUDA tensor that the kernel
@@ -20,12 +24,16 @@ import torch
 from fisr_tpu_torch.kernels import build
 from fisr_tpu_torch.ops.cost_volume import cost_volume as cost_volume_plain
 
-__all__ = ["cost_volume", "cost_volume_cuda", "LAUNCHES", "SEARCH_RANGES"]
+__all__ = ["cost_volume", "cost_volume_cuda", "LAUNCHES", "LAUNCHES_BY_VARIANT",
+           "SEARCH_RANGES"]
 
-# kernel launches made by this process (the main path's count is read from here)
+# kernel launches made by this process (the main path's count is read from
+# here), in all and by the kernel that the input type selects
 LAUNCHES = 0
+LAUNCHES_BY_VARIANT = {"mma_bf16": 0, "fma_f32": 0}
 SEARCH_RANGES = (2, 4)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANTS = {torch.float32: "fma_f32", torch.bfloat16: "mma_bf16"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,6 +79,7 @@ def _launch(c1: torch.Tensor, c2: torch.Tensor, d: int) -> torch.Tensor:
         msg = lib.fisr_cuda_error_string(err).decode()
         raise RuntimeError(f"cost-volume kernel launch failed: {msg} ({err})")
     LAUNCHES += 1
+    LAUNCHES_BY_VARIANT[_VARIANTS[c1.dtype]] += 1
     return out
 
 
