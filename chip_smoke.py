@@ -11,10 +11,10 @@ Phases (any failure raises and exits non-zero):
    plain PyTorch version on the card at the five PWC-Net level shapes of a
    1024x1920 window (B=2, d=4), at ragged shapes (d=2 and 4, odd W and H,
    C=3, 20, 196), and the gradient. At the level shapes the kernel is timed
-   with CUDA events twice: replaying a CUDA graph of launches (`ms`, the
-   card's time alone) and call by call through the wrapper (`call_ms`, which
-   at the small levels is the host's time to launch); the plain version call
-   by call.
+   with CUDA events twice: call by call through the wrapper (`ms`, which at
+   the small levels is the host's time to launch) and replaying a CUDA graph
+   of launches (`graph_ms`, the card's time alone); the plain version call by
+   call.
 3. small  - make_fused_video_step at 64x64 with full-width weights in f32,
    kernel against plain version (TF32 off), and the port's PWC-Net and
    FISRnet on the card against the TF-oracle fixtures of tests/fixtures/.
@@ -47,9 +47,6 @@ WINDOW = (1024, 1920)
 FLOW_UPSCALE = 2
 D = 4
 LEVEL_CHANNELS = {2: 32, 3: 64, 4: 96, 5: 128, 6: 196}
-# the bf16 kernel's time for one frame pair's five levels before it moved to the
-# tensor cores (this script, NVIDIA H100 80GB HBM3, 700.00 W)
-MS_BF16_FMA_KERNEL = 2.744
 SMALL_TOL = 1e-4   # kernel vs plain path through both networks, outputs in [0, 1]
 ORACLE_TOL = 1e-5  # card (f32, TF32 off) vs the TF-oracle fixtures
 
@@ -138,8 +135,8 @@ def phase_kernel():
             tag = "f32" if dtype == torch.float32 else "bf16"
             bound, by = cv_bound_ms(shape, dtype)
             row.update({f"{tag}_err": err,
-                        f"{tag}_ms": graph_time_ms(lambda: kernel.cost_volume_cuda(a, b, D)),
-                        f"{tag}_call_ms": time_ms(lambda: kernel.cost_volume_cuda(a, b, D)),
+                        f"{tag}_ms": time_ms(lambda: kernel.cost_volume_cuda(a, b, D)),
+                        f"{tag}_graph_ms": graph_time_ms(lambda: kernel.cost_volume_cuda(a, b, D)),
                         f"{tag}_plain_ms": time_ms(lambda: plain(a, b, D), reps=3, warmup=1),
                         f"{tag}_bound_ms": bound, f"{tag}_bound_by": by})
         levels.append(row)
@@ -307,8 +304,7 @@ def main() -> int:
         "launches": launches, "max_abs_err": max_err,
         # one frame pair's five levels (levels 6..2) in bf16, the main path's dtype
         "ms": sum(r["bf16_ms"] for r in levels),
-        "call_ms": sum(r["bf16_call_ms"] for r in levels),
-        "ms_pr1": MS_BF16_FMA_KERNEL,
+        "graph_ms": sum(r["bf16_graph_ms"] for r in levels),
         "plain_ms": sum(r["bf16_plain_ms"] for r in levels),
         "bound_ms": sum(r["bf16_bound_ms"] for r in levels),
         "bound_by": "bytes" if all(r["bf16_bound_by"] == "bytes" for r in levels) else "operations",

@@ -423,7 +423,9 @@ cudaError_t launch_mma_bf16(const void* c1, const void* c2, void* out, int B, in
                             int C, cudaStream_t stream) {
   using G = MmaGeo<D>;
   auto kernel = cost_volume_kernel_mma_bf16<D>;
-  // more than 48 KB of dynamic shared memory is opted into once per device
+  // more than 48 KB of dynamic shared memory is opted into once per device:
+  // the current one, which the caller makes the tensors' device. Two threads
+  // that race here both opt in, which is harmless.
   static bool opted[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);

@@ -69,10 +69,15 @@ def _check(c1: torch.Tensor, c2: torch.Tensor, d: int) -> None:
 def _launch(c1: torch.Tensor, c2: torch.Tensor, d: int) -> torch.Tensor:
     global LAUNCHES
     _check(c1, c2, d)
+    if c1.device.index != torch.cuda.current_device():
+        # the library launches on the current device; entering the guard on
+        # every call would cost more host time than the small levels take
+        with torch.cuda.device(c1.device):
+            return _launch(c1, c2, d)
     lib = _lib()
     b, h, w, c = c1.shape
     out = torch.empty((b, h, w, (2 * d + 1) ** 2), dtype=c1.dtype, device=c1.device)
-    stream = torch.cuda.current_stream(c1.device).cuda_stream
+    stream = torch.cuda.current_stream().cuda_stream
     err = lib.fisr_cost_volume(c1.data_ptr(), c2.data_ptr(), out.data_ptr(), b, h, w,
                                c, d, _DTYPES[c1.dtype], stream)
     if err:
