@@ -1,5 +1,5 @@
 """FISRnet: 3-level coarse-to-fine joint VFI+SR U-Net stack (port of
-fisr_tpu/models/fisrnet.py, composed path).
+fisr_tpu/models/fisrnet.py).
 
 input [B, H, W, 29] = 3 YUV frames (9) + 4 flows (8) + 4 warped frames (12),
 H and W multiples of 32. level_1 runs on the x1/4 input, level_2 on the x1/2
@@ -22,8 +22,8 @@ from torch import nn
 from fisr_tpu_torch.device import resolve_device
 from fisr_tpu_torch.ops.conv import (
     F32, Bottleneck, Conv, DecLevel, EncLevel, Policy, ResBlock, bottleneck,
-    conv2d, dec_level, enc_level, head_tail_conv, init_weights_,
-    res_block,
+    conv2d, conv_in_fused, dec_level, enc_level, head_tail_conv, init_weights_,
+    max_pool_2x2, res_block,
 )
 from fisr_tpu_torch.ops.resize import downsample_int
 
@@ -82,7 +82,10 @@ class FISRnet(nn.Module):
 
 def apply_heads(p: Level, n: torch.Tensor, sf: int = 2, policy: Policy = F32) -> torch.Tensor:
     """Both heads on the last decoder features n [B, h, w, ch] ->
-    [B, h*sf, w*sf, 9] = concat [fr1, SR, fr2]."""
+    [B, h*sf, w*sf, 9] = concat [fr1, SR, fr2]. Receptive radius 6 px at n's
+    scale. The JAX package merges the two heads' conv0 into one conv to fill
+    the TPU's output lanes; the function is the same, and here they are two
+    convs."""
 
     def run_head(hp: Head) -> torch.Tensor:
         m = conv2d(hp.conv0, n, policy)
@@ -95,30 +98,112 @@ def apply_heads(p: Level, n: torch.Tensor, sf: int = 2, policy: Policy = F32) ->
     return torch.cat([pred_fisr[..., :3], pred_sr, pred_fisr[..., 3:]], dim=-1)
 
 
-def apply_level(p: Level, x: torch.Tensor, sf: int = 2, policy: Policy = F32) -> torch.Tensor:
-    """One U-Net level: x [B, h, w, C] -> prediction [B, h*sf, w*sf, 9]."""
+# Receptive radii (input px) of the pipeline's suffix from each cut point:
+# dec0 reads 8 (x2 upsample 2 + resize conv 1 + conv_in 1 + 2 res blocks 4)
+# and the heads 6 (conv0 1 + res0 2 + conv1 1 + the x2-scale tail conv 1).
+# Both are rounded up to multiples of 8 as in the JAX package (whose TPU tile
+# layout wants 8-aligned slices); the port keeps the values so that it trims
+# the same cells, and a larger tail only keeps more of the ring.
+_TAIL_DEC0 = 16
+_TAIL_HEADS = 8
+
+
+def apply_level(p: Level, x: torch.Tensor, sf: int = 2, policy: Policy = F32,
+                stale_halo: int = 0, fast_upsample: bool = False,
+                extra: torch.Tensor | None = None, in_stride: int = 1) -> torch.Tensor:
+    """One U-Net level: x [B, h, w, C] -> prediction [B, h*sf, w*sf, 9].
+
+    stale_halo: the caller tiled the frame and x carries a ring of
+    `stale_halo` px that will be cut from the output (infer/device.
+    tiled_apply). The ring only has to live as long as the rest of the
+    pipeline reads it: it is trimmed to _TAIL_DEC0 px before dec0 and to
+    _TAIL_HEADS px before the heads, and the prediction comes back with a
+    ring of _TAIL_HEADS*sf px. The cells removed influence only cells that
+    are removed, so the retained output is the same function as with the
+    full ring; whether it is the same bits depends on the conv library
+    choosing one algorithm for both extents (tests/test_torch_models.py
+    states what was measured). Requires stale_halo == 0, or >= _TAIL_DEC0
+    with the cut a multiple of 8.
+
+    fast_upsample: dec1 and dec0 run their x2 upsample + conv as one folded
+    subpixel conv (ops/conv.up_conv2x), exact except at the frame border.
+    dec2 never does: its 1-px border deviation sits at 1/4 scale and the
+    ~30-px receptive tail after it would carry it past a 32-px halo.
+
+    extra / in_stride: the level's true input is
+    cat([downsample_int(x, in_stride), extra], -1), computed by
+    ops/conv.conv_in_fused without building either.
+    """
     x = policy.cast(x)
-    h, w = x.shape[1], x.shape[2]
-    n, skip0 = enc_level(p.enc["level_0"], x, policy)
+    h, w = x.shape[1] // in_stride, x.shape[2] // in_stride
+    if extra is not None or in_stride != 1:
+        e0 = p.enc["level_0"]
+        n = conv_in_fused(e0.conv_in, x, extra, policy, in_stride)
+        n = res_block(e0.res0, n, policy)
+        skip0 = torch.relu(res_block(e0.res1, n, policy))
+        n = max_pool_2x2(skip0)
+    else:
+        n, skip0 = enc_level(p.enc["level_0"], x, policy)
     n, skip1 = enc_level(p.enc["level_1"], n, policy)
     n, skip2 = enc_level(p.enc["level_2"], n, policy)
     n = bottleneck(p.bottleneck, n, policy)
     n = dec_level(p.dec["level_2"], n, skip2, (h // 4, w // 4), policy)
-    n = dec_level(p.dec["level_1"], n, skip1, (h // 2, w // 2), policy)
-    n = dec_level(p.dec["level_0"], n, skip0, (h, w), policy)
+    n = dec_level(p.dec["level_1"], n, skip1, (h // 2, w // 2), policy, fast_upsample)
+
+    if stale_halo:
+        if stale_halo < _TAIL_DEC0 or (stale_halo - _TAIL_DEC0) % 8:
+            raise ValueError(f"stale_halo {stale_halo}: want 0, or >= {_TAIL_DEC0} "
+                             "with the cut a multiple of 8")
+        cut = stale_halo - _TAIL_DEC0
+        c2 = cut // 2
+        n = n[:, c2:n.shape[1] - c2, c2:n.shape[2] - c2, :]
+        skip0 = skip0[:, cut:skip0.shape[1] - cut, cut:skip0.shape[2] - cut, :]
+        h, w = h - 2 * cut, w - 2 * cut
+
+    n = dec_level(p.dec["level_0"], n, skip0, (h, w), policy, fast_upsample)
+
+    if stale_halo:
+        c2 = _TAIL_DEC0 - _TAIL_HEADS
+        n = n[:, c2:n.shape[1] - c2, c2:n.shape[2] - c2, :]
+
     return apply_heads(p, n, sf, policy)
 
 
-def apply(model: FISRnet, img: torch.Tensor, sf: int = 2, policy: Policy = F32):
+def apply(model: FISRnet, img: torch.Tensor, sf: int = 2, policy: Policy = F32,
+          final_stale_halo: int = 0, fast_upsample: bool = False,
+          fuse_input_glue: bool = False):
     """Full 3-level stack. img [B, H, W, 29] -> (pred_l1, pred_l2, pred_l3) at
     (H/2, H, 2H). The x1/4 and x1/2 inputs are the TF1-legacy bicubic, which
-    for integer factors is subsampling."""
+    for integer factors is subsampling.
+
+    final_stale_halo: a ring on img that the caller will cut away; level 3
+    may shrink it on the way (apply_level). Levels 1 and 2 keep it: their
+    predictions feed the next level's input and must stay full size. pred_l3
+    then carries a ring of _TAIL_HEADS*sf px.
+
+    fast_upsample goes to level 3 only: the internal scales of levels 1 and 2
+    are 1/4 to 1/16 of the window, so the folded upconv's 1-px border
+    deviation would span 16 and more window px there and spread through
+    pred_l1 and pred_l2 into every pixel of level 3.
+
+    fuse_input_glue: the x1/4 and x1/2 subsamplings become strided, dilated
+    input convs on img itself, and the [img | previous prediction] concats
+    of levels 2 and 3 become split convs (ops/conv.conv_in_fused). The same
+    function, summation order aside.
+    """
     img = policy.cast(img)
+    if fuse_input_glue:
+        pred_l1 = apply_level(model.level_1, img, sf, policy, in_stride=4)
+        pred_l2 = apply_level(model.level_2, img, sf, policy, extra=pred_l1, in_stride=2)
+        pred_l3 = apply_level(model.level_3, img, sf, policy, stale_halo=final_stale_halo,
+                              fast_upsample=fast_upsample, extra=pred_l2)
+        return pred_l1, pred_l2, pred_l3
     pred_l1 = apply_level(model.level_1, downsample_int(img, 4), sf, policy)
     img_l2 = torch.cat([downsample_int(img, 2), pred_l1], dim=-1)
     pred_l2 = apply_level(model.level_2, img_l2, sf, policy)
     img_l3 = torch.cat([img, pred_l2], dim=-1)
-    pred_l3 = apply_level(model.level_3, img_l3, sf, policy)
+    pred_l3 = apply_level(model.level_3, img_l3, sf, policy, stale_halo=final_stale_halo,
+                          fast_upsample=fast_upsample)
     return pred_l1, pred_l2, pred_l3
 
 

@@ -27,9 +27,9 @@ from fisr_tpu_torch.ops.resize import resize_tf1, upsample2x_bilinear
 
 __all__ = [
     "Policy", "F32", "BF16", "Conv", "ResBlock", "EncLevel", "Bottleneck",
-    "DecLevel", "conv2d", "res_block", "max_pool_2x2", "enc_level",
-    "bottleneck", "dec_level", "depth_to_space", "head_tail_conv",
-    "init_weights_",
+    "DecLevel", "conv2d", "conv_in_fused", "res_block", "max_pool_2x2",
+    "enc_level", "bottleneck", "dec_level", "up_conv2x", "depth_to_space",
+    "head_tail_conv", "init_weights_",
 ]
 
 
@@ -128,6 +128,33 @@ def conv2d(p: Conv, x: torch.Tensor, policy: Policy = F32, *, stride: int = 1,
     return out.permute(0, 2, 3, 1)
 
 
+def conv_in_fused(p: Conv, img: torch.Tensor, extra: torch.Tensor | None,
+                  policy: Policy = F32, img_stride: int = 1) -> torch.Tensor:
+    """`conv2d(p, cat([downsample_int(img, img_stride), extra], -1))` without
+    building the concat or the subsampled image (inference paths only).
+
+    Two rewrites of the same function, summation order aside:
+
+    * split conv: a conv is linear in its input channels, so the conv over
+      the concat is conv(img, w[:, :Ci]) + conv(extra, w[:, Ci:]); the bias is
+      added once, after the sum;
+    * fused downsample: a 3x3 SAME conv on img[::k, ::k] is the same conv on
+      the full image with stride k, dilation k and explicit padding (k, k):
+      output i reads x[ki-k], x[ki], x[ki+k], and the k zeros of padding
+      stand for the SAME pad of the subsampled grid.
+    """
+    dt = policy.compute_dtype
+    ci = img.shape[-1]
+    w = p.weight.to(dt)
+    k = img_stride
+    pad = (p.weight.shape[-1] - 1) // 2
+    out = F.conv2d(img.to(dt).permute(0, 3, 1, 2), w[:, :ci], None, k, pad * k, k)
+    if extra is not None:
+        out = out + F.conv2d(extra.to(dt).permute(0, 3, 1, 2), w[:, ci:], None, 1, pad)
+    out = out + p.bias.to(dt).view(1, -1, 1, 1)
+    return out.permute(0, 2, 3, 1)
+
+
 def res_block(p: ResBlock, x: torch.Tensor, policy: Policy = F32) -> torch.Tensor:
     n = conv2d(p.conv0, torch.relu(x), policy)
     n = conv2d(p.conv1, torch.relu(n), policy)
@@ -153,16 +180,92 @@ def bottleneck(p: Bottleneck, x: torch.Tensor, policy: Policy = F32) -> torch.Te
 
 
 def dec_level(p: DecLevel, x: torch.Tensor, skip: torch.Tensor, size,
-              policy: Policy = F32) -> torch.Tensor:
-    if (size[0], size[1]) == (x.shape[1] * 2, x.shape[2] * 2):
-        n = upsample2x_bilinear(x)
+              policy: Policy = F32, fast_upsample: bool = False) -> torch.Tensor:
+    doubles = (size[0], size[1]) == (x.shape[1] * 2, x.shape[2] * 2)
+    if fast_upsample and doubles:
+        n = torch.relu(up_conv2x(p.resize, x, policy))
     else:
-        n = resize_tf1(x, size, "bilinear")
-    n = torch.relu(conv2d(p.resize, n, policy))
+        n = upsample2x_bilinear(x) if doubles else resize_tf1(x, size, "bilinear")
+        n = torch.relu(conv2d(p.resize, n, policy))
     n = torch.cat([n, policy.cast(skip)], dim=-1)
     n = conv2d(p.conv_in, n, policy)
     n = res_block(p.res0, n, policy)
     return torch.relu(res_block(p.res1, n, policy))
+
+
+# 1-D fold F[a][tap t][kernel tap d] of the TF1-legacy x2 bilinear stencil
+# (up[2k] = x[k], up[2k+1] = (x[k] + x[k+1]) / 2) into a 3-tap conv.
+_UP_FOLD = (((0.5, 0.0, 0.0),   # a=0: up rows 2i-1, 2i, 2i+1
+             (0.5, 1.0, 0.5),
+             (0.0, 0.0, 0.5)),
+            ((0.0, 0.0, 0.0),   # a=1: up rows 2i, 2i+1, 2i+2
+             (1.0, 0.5, 0.0),
+             (0.0, 0.5, 1.0)))
+
+
+def _fold_up_conv_weights(w: torch.Tensor) -> torch.Tensor:
+    """Fold `conv3x3(upsample2x_bilinear(x), w)` into a subpixel kernel.
+
+    OIHW [Co, C, 3, 3] -> [4*Co, C, 3, 3]: output slot (a, b) of the
+    x2-upsampled conv result is itself a 3x3 conv over the half-resolution
+    input, whose taps are the original taps composed with the bilinear
+    stencil:
+
+        W'[(a,b,f), c, t, u] = sum_{d,e} F[a,t,d] * F[b,u,e] * w[f,c,d,e]
+
+    The slot blocks come in TF depth_to_space (DCR) order, slot (a, b) at
+    output channels (a*2+b)*Co .., so `depth_to_space(conv(x, W'), 2)`
+    reproduces the composition.
+    """
+    f = torch.tensor(_UP_FOLD, dtype=w.dtype, device=w.device)
+    wp = torch.einsum("atd,bue,fcde->abfctu", f, f, w)
+    return wp.reshape(4 * w.shape[0], w.shape[1], 3, 3)
+
+
+def _folded_up_weight(p: Conv, dt: torch.dtype) -> torch.Tensor:
+    """`_fold_up_conv_weights(p.weight)` in `dt`, cached on `p` for inference.
+
+    The fold costs 0.39-0.62 ms a call (an einsum's small kernels and a
+    host-to-device copy of the stencil; NVIDIA H100 80GB HBM3 at 700 W,
+    `chip_smoke.py`, phase `tiled`), twice a window, where a jitted program
+    folds once; the kept copy costs 0.003 ms. The cache entry is keyed by everything that can make
+    it stale: the weight's `_version` (every in-place update bumps it: an
+    optimiser step, `load_state_dict`, `copy_`), its storage pointer and
+    device (`.to()` and `.data = ` replace them) and `dt`. It is not used
+    where it could not be trusted: with autograd on (the fold must stay in
+    the graph) and for a weight that is an inference tensor (no version
+    counter, so an update in place would go unseen).
+    """
+    w = p.weight
+    if torch.is_grad_enabled() or w.is_inference():
+        return _fold_up_conv_weights(w).to(dt)
+    key = (w._version, w.data_ptr(), w.device, dt)
+    cached = getattr(p, "_up_fold", None)
+    if cached is None or cached[0] != key:
+        cached = (key, _fold_up_conv_weights(w.detach()).to(dt))
+        p._up_fold = cached
+    return cached[1]
+
+
+def up_conv2x(p: Conv, x: torch.Tensor, policy: Policy = F32) -> torch.Tensor:
+    """`conv2d(p, upsample2x_bilinear(x))` as one subpixel conv at the input's
+    resolution, with 4*c_out output channels.
+
+    The same function as the composition except on a thin frame border: the
+    first output row and column (the conv's zero pad sits between two taps of
+    the upsample stencil, which the fold cannot say) and the last two (the
+    legacy upsample clamps its last interpolated row, the fold reads the zero
+    pad). Patch-tiled inference trims at least 2 px everywhere but at the
+    true canvas border, so the inference paths opt in (`fast_upsample`).
+
+    Without autograd the folded weight is kept on `p` beside the weight it
+    came from and is folded again when the weight's version counter, storage,
+    device or the compute dtype has changed (`_folded_up_weight`).
+    """
+    dt = policy.compute_dtype
+    wp = _folded_up_weight(p, dt)
+    out = F.conv2d(x.to(dt).permute(0, 3, 1, 2), wp, None, 1, 1).permute(0, 2, 3, 1)
+    return depth_to_space(out, 2) + p.bias.to(dt)
 
 
 def depth_to_space(x: torch.Tensor, block: int) -> torch.Tensor:

@@ -6,7 +6,13 @@ Measured max |diff| (f32, CPU): forward.npz 4.1e-8 (bound 5e-7);
 pwc_forward.npz 2.7e-8 per level (bound 2e-7), 8.8e-8 on flow_pred (bound
 5e-7); FISRnet ch=8 vs fisrnet.apply 3.0e-8, PWC-Net (4 levels, d=2, plain
 glorot weights, flows up to 1.7) vs pwcnet.apply 6.0e-6 (bound 1e-4, the
-whole-model bound).
+whole-model bound). The tiling options of FISRnet (ch=8) against JAX
+(bound 1e-4): apply_level with stale_halo 9.3e-9, fast_upsample 1.1e-8,
+extra 1.9e-8, in_stride 1.0e-8, the three together 1.5e-8; each option of
+`apply` and all three together at most 3.7e-8 a level. The stale-halo
+shrink against the full ring on the retained pixels: 0, equal bit for bit
+on the CPU at ch=8 and at ch=64 (the conv library ran one algorithm for
+both extents); the test allows 1e-6 where it does not.
 """
 
 import json
@@ -90,6 +96,70 @@ def test_fisrnet_matches_jax_apply():
     for g, w in zip(got, want):
         assert g.shape == w.shape
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(stale_halo=32), dict(fast_upsample=True), dict(stale_halo=16, fast_upsample=True),
+    dict(extra=True), dict(in_stride=2), dict(extra=True, in_stride=4, fast_upsample=True),
+], ids=lambda kw: "-".join(f"{k}{v}" for k, v in kw.items()))
+def test_apply_level_options_match_jax(kw):
+    tree = _small_fisr_tree()
+    model = params.fisrnet_from_jax(tree, device="cpu")
+    kw = dict(kw)
+    stride = kw.get("in_stride", 1)
+    rng = np.random.default_rng(2)
+    if kw.pop("extra", False):
+        x = rng.uniform(0, 1, size=(1, 96, 128, 29)).astype(np.float32)
+        extra = rng.uniform(0, 1, size=(1, 96 // stride, 128 // stride, 9)).astype(np.float32)
+        lvl, jkw, tkw = "level_3", dict(extra=jnp.asarray(extra)), dict(extra=torch.from_numpy(extra))
+    else:
+        x = rng.uniform(0, 1, size=(1, 96, 128, 29)).astype(np.float32)
+        lvl, jkw, tkw = "level_1", {}, {}
+    want = jfisrnet.apply_level(tree[lvl], jnp.asarray(x), **kw, **jkw)
+    with torch.no_grad():
+        got = fisrnet.apply_level(getattr(model, lvl), torch.from_numpy(x), **kw, **tkw)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(final_stale_halo=32), dict(fast_upsample=True), dict(fuse_input_glue=True),
+    dict(final_stale_halo=32, fast_upsample=True, fuse_input_glue=True),
+], ids=lambda kw: "-".join(kw))
+def test_apply_options_match_jax(kw):
+    tree = _small_fisr_tree()
+    model = params.fisrnet_from_jax(tree, device="cpu")
+    x = np.random.default_rng(3).uniform(0, 1, size=(1, 96, 128, 29)).astype(np.float32)
+    want = jfisrnet.apply(tree, jnp.asarray(x), **kw)
+    with torch.no_grad():
+        got = fisrnet.apply(model, torch.from_numpy(x), **kw)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-4)
+    ring = 2 * (fisrnet._TAIL_HEADS if "final_stale_halo" in kw else 0)
+    assert got[2].shape == (1, 192 - 2 * (64 - ring) if ring else 192,
+                            256 - 2 * (64 - ring) if ring else 256, 9)
+
+
+def test_stale_halo_shrink_equals_full_ring_on_retained_pixels():
+    """The cells the shrink removes reach only cells that are removed: the
+    retained output is the full ring's, bit for bit where the conv library
+    runs one algorithm for both extents, within 1e-6 (f32) where not."""
+    tree = _small_fisr_tree()
+    model = params.fisrnet_from_jax(tree, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(4).uniform(0, 1, size=(1, 160, 160, 29))
+                         .astype(np.float32))
+    with torch.no_grad():
+        full = fisrnet.apply(model, x)[2]
+        shrunk = fisrnet.apply(model, x, final_stale_halo=32)[2]
+        fast_full = fisrnet.apply(model, x, fast_upsample=True)[2]
+        fast_shrunk = fisrnet.apply(model, x, final_stale_halo=32, fast_upsample=True)[2]
+    assert shrunk.shape == (1, 224, 224, 9)
+    for a, b in ((shrunk, full), (fast_shrunk, fast_full)):
+        diff = (a[:, 16:-16, 16:-16] - b[:, 64:-64, 64:-64]).abs().max().item()
+        assert diff <= 1e-6, diff
+    with pytest.raises(ValueError, match="stale_halo"):
+        fisrnet.apply(model, x, final_stale_halo=20)
 
 
 def test_pwcnet_matches_jax_apply():

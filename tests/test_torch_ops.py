@@ -4,7 +4,11 @@ against the JAX package or its fixtures on the same numpy inputs.
 Tolerance: f32 atol 1e-5. Measured max |diff| (CPU): conv2d 9.5e-7, head
 tail 4.8e-7, enc/dec levels 0, resize 0, colour 0 (on [0, 255] values),
 warp 0 against both JAX formulations and 6.1e-5 against the cv2 fixture
-(bound 1e-3, as the JAX test), halo_map 0.
+(bound 1e-3, as the JAX test), halo_map 0; conv_in_fused 0 against JAX at
+strides 1, 2, 4 with and without `extra`, and 1.9e-6 against the port's own
+concat + subsample composition; up_conv2x and its weight fold 0 against
+JAX, 1.7e-6 against the port's upsample + conv on the interior; dec_level
+with fast_upsample 0 against JAX.
 """
 
 import ast
@@ -74,6 +78,102 @@ def test_enc_dec_levels_match_jax():
         out = conv.dec_level(dec, pool, skip, (8, 12))
     np.testing.assert_allclose(pool.numpy(), np.asarray(jpool), rtol=0, atol=1e-5)
     np.testing.assert_allclose(out.numpy(), np.asarray(jdec), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("stride", [1, 2, 4])
+@pytest.mark.parametrize("with_extra", [False, True])
+def test_conv_in_fused_matches_jax_and_composition(stride, with_extra):
+    ci, ce = 5, 4 if with_extra else 0
+    p = jconv.init_conv(jax.random.PRNGKey(20), 3, ci + ce, 7)
+    p["b"] = jnp.asarray(_x(21, (7,)))
+    img = _x(22, (2, 16, 24, ci))
+    extra = _x(23, (2, 16 // stride, 24 // stride, ce)) if with_extra else None
+    want = np.asarray(jconv.conv_in_fused(p, jnp.asarray(img),
+                                          None if extra is None else jnp.asarray(extra),
+                                          img_stride=stride))
+    c = _module(conv.Conv, p, ci + ce, 7)
+    with torch.no_grad():
+        got = conv.conv_in_fused(c, torch.from_numpy(img),
+                                 None if extra is None else torch.from_numpy(extra),
+                                 img_stride=stride)
+        sub = resize.downsample_int(torch.from_numpy(img), stride)
+        composed = conv.conv2d(c, sub if extra is None
+                               else torch.cat([sub, torch.from_numpy(extra)], -1))
+    assert got.shape == want.shape == (2, 16 // stride, 24 // stride, 7)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), composed.numpy(), rtol=0, atol=1e-5)
+
+
+def test_up_conv2x_matches_jax_and_composition_on_interior():
+    p = jconv.init_conv(jax.random.PRNGKey(24), 3, 8, 12)
+    p["b"] = jnp.asarray(_x(25, (12,)))
+    x = _x(26, (2, 16, 24, 8))
+    c = _module(conv.Conv, p, 8, 12)
+    # the fold, OIHW against the JAX package's HWIO
+    want_w = np.asarray(jconv._fold_up_conv_weights(p["w"])).transpose(3, 2, 0, 1)
+    np.testing.assert_allclose(conv._fold_up_conv_weights(c.weight).detach().numpy(), want_w,
+                               rtol=0, atol=1e-6)
+    want = np.asarray(jconv.up_conv2x(p, jnp.asarray(x)))
+    with torch.no_grad():
+        got = conv.up_conv2x(c, torch.from_numpy(x)).numpy()
+        composed = conv.conv2d(c, resize.upsample2x_bilinear(torch.from_numpy(x))).numpy()
+    assert got.shape == (2, 32, 48, 12)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    # everywhere but the first row/column and the last two (tests/test_staged.py)
+    np.testing.assert_allclose(got[:, 1:-2, 1:-2], composed[:, 1:-2, 1:-2], rtol=1e-5, atol=1e-5)
+    assert np.abs(got - composed).max() > 1e-3  # the border does differ
+
+
+def test_up_conv2x_fold_cache_follows_the_weight():
+    """The folded weight is reused only while the weight is what it was
+    folded from: an in-place update, a new dtype, autograd or a weight
+    without a version counter each fold again."""
+    c = conv.Conv(4, 6)
+    with torch.no_grad():
+        c.weight.copy_(torch.from_numpy(_x(31, (6, 4, 3, 3))))
+    x = torch.from_numpy(_x(32, (1, 6, 8, 4)))
+    with torch.no_grad():
+        first = conv._folded_up_weight(c, torch.float32)
+        assert conv._folded_up_weight(c, torch.float32) is first
+        assert conv._folded_up_weight(c, torch.bfloat16).dtype == torch.bfloat16
+        before = conv.up_conv2x(c, x)
+        c.weight.mul_(2.0)
+        second = conv._folded_up_weight(c, torch.float32)
+        assert second is not first
+        torch.testing.assert_close(second, conv._fold_up_conv_weights(c.weight))
+        torch.testing.assert_close(conv.up_conv2x(c, x) - c.bias, 2 * (before - c.bias))
+    grad = conv._folded_up_weight(c, torch.float32)  # autograd on: folded in the graph
+    assert grad.requires_grad and grad is not second
+    conv.up_conv2x(c, x).sum().backward()
+    assert c.weight.grad.abs().sum() > 0
+    with torch.inference_mode():
+        frozen = conv.Conv(4, 6)  # its weight is an inference tensor: no version counter
+        a = conv._folded_up_weight(frozen, torch.float32)
+        frozen.weight.add_(1.0)
+        assert not torch.equal(conv._folded_up_weight(frozen, torch.float32), a)
+
+
+def test_dec_level_fast_upsample_matches_jax():
+    k = jax.random.split(jax.random.PRNGKey(27), 2)
+    pd = {"resize": jconv.init_conv(k[1], 3, 6, 6), "conv_in": jconv.init_conv(k[0], 3, 12, 6),
+          "res0": jconv.init_res_block(k[0], 6), "res1": jconv.init_res_block(k[1], 6)}
+    x, skip = _x(28, (1, 8, 12, 6)), _x(29, (1, 16, 24, 6))
+    dec = _module(conv.DecLevel, pd, 6, 6)
+    for size, fast in (((16, 24), True), ((16, 24), False)):
+        want = np.asarray(jconv.dec_level(pd, jnp.asarray(x), jnp.asarray(skip), size,
+                                          fast_upsample=fast))
+        with torch.no_grad():
+            got = conv.dec_level(dec, torch.from_numpy(x), torch.from_numpy(skip), size,
+                                 fast_upsample=fast)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    # a size that is not a doubling keeps the resize whatever the flag says
+    skip15 = _x(30, (1, 15, 23, 6))
+    want = np.asarray(jconv.dec_level(pd, jnp.asarray(x), jnp.asarray(skip15), (15, 23),
+                                      fast_upsample=True))
+    with torch.no_grad():
+        got = conv.dec_level(dec, torch.from_numpy(x), torch.from_numpy(skip15), (15, 23),
+                             fast_upsample=True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
 
 
 def test_max_pool_same_on_odd_extent():
@@ -254,10 +354,15 @@ def test_cuda_device_raises_without_a_card(monkeypatch, tmp_path):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-# ---- import hygiene: the port and chip_smoke.py use no JAX ------------------
+# ---- import hygiene: the port, chip_smoke.py and the port's scripts use no JAX
+
+SCRIPTS = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "scripts", "profile_torch_video.py"),
+           os.path.join(ROOT, "scripts", "time_torch_pipeline.py")]
+
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = list(SCRIPTS)
     for d, _, names in os.walk(os.path.join(ROOT, "fisr_tpu_torch")):
         files += [os.path.join(d, n) for n in sorted(names) if n.endswith(".py")]
     return files
@@ -282,16 +387,26 @@ def test_port_sources_import_no_jax():
             elif isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module":
                 bad.append((path, "importlib.import_module"))
     assert not bad, bad
-    assert len(_port_files()) > 15
+    rel = {os.path.relpath(f, ROOT) for f in _port_files()}
+    assert {"fisr_tpu_torch/infer/tiled.py", "fisr_tpu_torch/infer/device.py",
+            "fisr_tpu_torch/infer/evaluate.py", "fisr_tpu_torch/infer/video_eval.py",
+            "fisr_tpu_torch/ops/metrics.py", "fisr_tpu_torch/ops/seq.py",
+            "fisr_tpu_torch/data/flo.py", "fisr_tpu_torch/data/matio.py",
+            "fisr_tpu_torch/cli/_common.py", "scripts/profile_torch_video.py"} <= rel
+    assert len(rel) > 30
 
 
 def test_port_modules_load_without_jax():
+    """Every module of the port imports with no JAX loaded, and with h5py, PIL
+    and triton made unimportable (the card's machine has no h5py and no PIL;
+    this one has no triton)."""
     mods = []
-    for path in _port_files()[1:]:
+    for path in _port_files()[len(SCRIPTS):]:
         rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
         mods.append(rel[: -len(".__init__")] if rel.endswith(".__init__") else rel)
     code = (
         "import importlib, sys\n"
+        "for m in ('h5py', 'PIL', 'triton'): sys.modules[m] = None\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'fisr_tpu')]\n"
         "assert not bad, bad\n"

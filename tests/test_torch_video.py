@@ -1,12 +1,15 @@
-"""Port: the fused FISR_for_video path (pair -> window -> pipeline -> CLI)
-against fisr_tpu.infer.video on the same weights and frames.
+"""Port: the FISR_for_video paths, fused and staged (pair -> window ->
+pipeline -> CLI), against fisr_tpu.infer.video on the same weights and frames.
 
 Weights are the TF-oracle generator's (damped, outputs O(1)), loaded into
 both packages; FISRnet at ch=8, PWC-Net at 4 levels and d=2 for the
 function-level tests and at lg-6-2 for the pipeline, as the JAX pipeline
 always runs it. Measured max |diff| (f32, CPU): flows 3.9e-8 (bound 1e-4),
 warps 3.1e-5 on [0, 255] values (bound 1e-3), window 1.8e-8 and fused step
-1.5e-8 (bound 1e-4), pipeline frames 0 u8 counts (bound 1).
+1.5e-8 (bound 1e-4), pipeline frames 0 u8 counts (bound 1), fused and
+staged; the window under fisr_grid (1, 2) and 'auto' 1.4e-8 (bound 1e-4); the
+staged path's .flo 6.1e-8 px and .mat 2.1e-7 (of [0, 1]) against the JAX
+pipeline's files.
 """
 
 import glob
@@ -26,6 +29,7 @@ from fisr_tpu.models import fisrnet as jfisrnet
 from fisr_tpu.models import pwcnet as jpwcnet
 from fisr_tpu_torch.convert import params
 from fisr_tpu_torch.convert.oracle import deterministic_tf_vars
+from fisr_tpu_torch.data import flo, matio
 from fisr_tpu_torch.data.png_io import read_png, write_png
 from fisr_tpu_torch.infer import video
 from fisr_tpu_torch.models import pwcnet
@@ -101,13 +105,31 @@ def test_window_and_fused_step_match_jax(small_models):
     np.testing.assert_array_equal(step, got)
 
 
+@pytest.mark.parametrize("fisr_grid", [(1, 2), "auto"])
+def test_window_under_fisr_grid_matches_jax(small_models, fisr_grid):
+    """The window stage through the device tiling: an explicit grid, and
+    'auto' (at 64x128 the plan is (2, 4), pad (0, 0))."""
+    ftree, _, fisr, _ = small_models
+    rng = np.random.default_rng(5)
+    f = _frames(3, 64, 128, seed=3).astype(np.float32)[None]
+    pairs = [(rng.normal(scale=4.0, size=(1, 2, 64, 128, 2)).astype(np.float32),
+              rng.uniform(0, 255, size=(1, 2, 64, 128, 3)).astype(np.float32)) for _ in range(2)]
+    want = np.asarray(jvideo.make_fisr_window_fn(fisr_grid=fisr_grid)(
+        ftree, jnp.asarray(f), *[tuple(jnp.asarray(t) for t in p) for p in pairs]))
+    got = video.make_fisr_window_fn(fisr_grid=fisr_grid)(
+        fisr, torch.from_numpy(f), *[tuple(torch.from_numpy(t) for t in p) for p in pairs])
+    assert got.shape == (1, 128, 256, 9) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+    assert 0.0 <= got.min() and got.max() <= 1.0
+
+
 @pytest.fixture(scope="module")
 def full_pwc_trees():
     return _trees({})
 
 
 def _write_folder(folder, n=4, h=32, w=32):
-    os.makedirs(folder)
+    os.makedirs(folder, exist_ok=True)
     for i, fr in enumerate(_frames(n, h, w, seed=2)):
         write_png(fr, os.path.join(folder, f"frame_{i:03d}.png"))
     return str(folder)
@@ -133,9 +155,49 @@ def test_pipeline_matches_jax_pipeline(tmp_path, full_pwc_trees):
         assert np.abs(a - b).max() <= 1, name
 
 
+def test_staged_pipeline_matches_jax_pipeline(tmp_path, full_pwc_trees):
+    """fused=False: flows and warps to the host and to .flo / .mat, then
+    TiledRunner(grid=(1, 2), 'exact'); frames, file order and artifacts
+    against the JAX pipeline's. The 40x72 frames are cropped to 32x64."""
+    ftree, ptree = full_pwc_trees
+    fisr = params.fisrnet_from_jax(ftree, device="cpu")
+    pwc = params.pwcnet_from_jax(ptree, device="cpu")
+    out = {}
+    for side in ("jax", "port"):
+        folder = _write_folder(tmp_path / side / "scene7", n=4, h=40, w=72)
+        kw = dict(out_folder=str(tmp_path / side / "out"), grid=(1, 2), boundary=32,
+                  write_artifacts=True, verbose=False)
+        if side == "jax":
+            out[side] = jvideo.run_video_pipeline(ftree, ptree, folder, **kw)
+        else:
+            out[side] = video.run_video_pipeline(fisr, pwc, folder, device="cpu", **kw)
+    assert [os.path.basename(p) for p in out["port"]] == [os.path.basename(p) for p in out["jax"]]
+    assert len(out["port"]) == 6
+    names = sorted(os.listdir(tmp_path / "jax" / "out"))
+    assert names == sorted(os.listdir(tmp_path / "port" / "out")) and len(names) == 10
+    for name in names:
+        a = read_png(tmp_path / "port" / "out" / name).astype(np.int16)
+        b = read_png(tmp_path / "jax" / "out" / name).astype(np.int16)
+        assert a.shape == (64, 128, 3)
+        assert np.abs(a - b).max() <= 1, name
+    fl = [flo.read_flo_5dim(tmp_path / side / "scene7" / "scene7_test_ss1_fr4.flo")
+          for side in ("port", "jax")]
+    wp = [matio.read_warp_mat(tmp_path / side / "scene7" / "scene7_ss1_fr4_warp.mat")
+          for side in ("port", "jax")]
+    assert fl[0].shape == (3, 2, 40, 72, 2) and wp[0].shape == (3, 2, 40, 72, 3)
+    np.testing.assert_allclose(fl[0], fl[1], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(wp[0], wp[1], rtol=0, atol=1e-3 / 255)
+
+
 def test_pipeline_staged_path_is_not_ported(small_models, tmp_path):
+    """What the pipeline still lacks is the 'tuned' plan (the autotune cache):
+    it raises and names its place in the queue, on either path's entry."""
     _, _, fisr, pwc = small_models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    _write_folder(tmp_path / "vid", n=3)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 5"):
+        video.run_video_pipeline(fisr, pwc, str(tmp_path / "vid"), fused=True,
+                                 fisr_grid="tuned", device="cpu", verbose=False)
+    with pytest.raises(ValueError, match="3 frames"):
         video.run_video_pipeline(fisr, pwc, str(tmp_path), device="cpu")
 
 
@@ -143,21 +205,39 @@ def test_cli_video_phase(tmp_path, full_pwc_trees):
     from fisr_tpu_torch.cli.main import main
 
     ftree, ptree = full_pwc_trees
-    folder = _write_folder(tmp_path / "vid", n=3)
+    folder = _write_folder(tmp_path / "vid", n=3, h=32, w=64)
     for name, tree in (("fisr.npz", ftree), ("pwc.npz", ptree)):
         flat = {"/".join(k.key for k in path): np.asarray(v)
                 for path, v in jax.tree_util.tree_leaves_with_path(tree)}
         np.savez(tmp_path / name, **flat)
     base = ["--phase", "FISR_for_video", "--frame_folder_path", folder, "--frame_num", "3",
-            "--video_out_dir", str(tmp_path / "out"), "--device", "cpu",
-            "--compute_dtype", "float32"]
-    out = main(base + ["--fused", "--fisr_params_npz", str(tmp_path / "fisr.npz"),
-                       "--pwc_params_npz", str(tmp_path / "pwc.npz")])
-    assert len(out) == 3 and all(os.path.exists(p) for p in out)
-    assert read_png(out[0]).shape == (64, 64, 3)
+            "--device", "cpu", "--compute_dtype", "float32"]
+    weights = ["--fisr_params_npz", str(tmp_path / "fisr.npz"),
+               "--pwc_params_npz", str(tmp_path / "pwc.npz")]
+
+    def run(tag, *flags):
+        out = main(base + weights + ["--video_out_dir", str(tmp_path / tag)] + list(flags))
+        assert len(out) == 3 and all(os.path.exists(p) for p in out)
+        return np.stack([read_png(p) for p in out]).astype(np.int16)
+
+    fused = run("fused", "--fused")
+    assert fused.shape == (3, 64, 128, 3)
+    # the staged path (no --fused) writes the artifacts beside the frames
+    staged = run("staged", "--FISR_test_patch", "1", "2")
+    assert os.path.exists(os.path.join(folder, "vid_test_ss1_fr3.flo"))
+    assert os.path.exists(os.path.join(folder, "vid_ss1_fr3_warp.mat"))
+    # at this size the 32-px halo covers the frame: exact tiling == full frame
+    assert np.abs(staged - fused).max() <= 1
+    want = video.run_video_pipeline(
+        params.fisrnet_from_jax(ftree, device="cpu"), params.pwcnet_from_jax(ptree, device="cpu"),
+        folder, out_folder=str(tmp_path / "api"), frame_num=3, fused=True, fisr_grid=(1, 2),
+        device="cpu", verbose=False)
+    tiled = run("tiled", "--fused", "--fisr_grid", "1,2")
+    np.testing.assert_array_equal(tiled, np.stack([read_png(p) for p in want]))
+    run("auto", "--fused", "--fisr_grid", "auto")
     with pytest.raises(SystemExit, match="weights"):
         main(base + ["--fused"])
-    with pytest.raises(NotImplementedError):
-        main(base)
-    with pytest.raises(NotImplementedError):
-        main(base + ["--fused", "--phase", "test"])
+    with pytest.raises(NotImplementedError, match="item 5"):
+        main(base + weights + ["--fused", "--fisr_grid", "tuned"])
+    with pytest.raises(NotImplementedError, match="item 4"):
+        main(base + weights + ["--phase", "train"])
