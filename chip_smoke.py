@@ -312,8 +312,8 @@ def phase_tiled(fisr, pwc, frames_u8):
     from fisr_tpu_torch.infer.tiled import TiledRunner
     from fisr_tpu_torch.infer.video import make_fisr_window_fn, make_pair_fn, resolve_fisr_plan
     from fisr_tpu_torch.models import fisrnet
-    from fisr_tpu_torch.ops.conv import (BF16, F32, _fold_up_conv_weights, _folded_up_weight,
-                                         conv2d, conv_in_fused)
+    from fisr_tpu_torch.ops.conv import (BF16, F32, _fold_up_conv_weights, conv2d,
+                                         conv_in_fused)
     from fisr_tpu_torch.ops.resize import downsample_int
 
     dev = torch.device("cuda")
@@ -345,14 +345,12 @@ def phase_tiled(fisr, pwc, frames_u8):
             diff = (preds[spec] - preds[None]).abs().float()
             log(f"[tiled] fisr_grid={spec} vs full frame, u8 counts: max {int(diff.max())}, "
                 f"mean {diff.mean().item():.4f}")
-        # the weight fold of up_conv2x (level 3's dec1 and dec0): folding on
-        # every call against the copy kept on the module
+        # the weight fold of up_conv2x (level 3's dec1 and dec0), run on every call
         for name in ("level_1", "level_0"):
             p = fisr.level_3.dec[name].resize
             ms = time_ms(lambda: _fold_up_conv_weights(p.weight).to(torch.bfloat16), reps=20)
-            kept = time_ms(lambda: _folded_up_weight(p, torch.bfloat16), reps=20)
             log(f"[tiled] up_conv2x weight fold, level_3.dec.{name} {tuple(p.weight.shape)}: "
-                f"{ms:.4f} ms folded anew, {kept:.4f} ms kept")
+                f"{ms:.4f} ms a call")
 
         # the fused input glue at the 'auto' plan's batch (24 patches of 320x384):
         # cuDNN on the strided, dilated 29-channel conv against the composition

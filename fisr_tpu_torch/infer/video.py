@@ -200,35 +200,18 @@ def make_fused_video_step(cfg: pwcnet.PWCNetConfig = pwcnet.PWCNetConfig(),
     return step
 
 
-class _Download:
-    """A device tensor on its way to the host. On a CUDA device the copy runs
-    on a side stream into pinned memory, behind an event recorded where the
-    tensor was produced, so work queued on the main stream after `start`
-    does not hold it up; `result` waits for the copy alone."""
-
-    def __init__(self, device: torch.device):
-        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
-        self.done = None
-        self.host = None
-
-    def start(self, t: torch.Tensor) -> None:
-        if self.stream is None:
-            self.host = t
-            return
-        ready = torch.cuda.Event()
-        ready.record()
-        self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        with torch.cuda.stream(self.stream):
-            self.stream.wait_event(ready)
-            self.host.copy_(t, non_blocking=True)
-            self.done = torch.cuda.Event()
-            self.done.record()
-        t.record_stream(self.stream)
-
-    def result(self) -> np.ndarray:
-        if self.done is not None:
-            self.done.synchronize()
-        return self.host.numpy()
+def _start_download(t: torch.Tensor):
+    """Queue the copy of `t` to the host behind the work that produced it.
+    Returns (host tensor, event or None). On a CUDA device the copy goes into
+    pinned memory without blocking, so the caller can dispatch more work and
+    wait for the event alone; a CPU tensor is returned as it is."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(t.device))
+    return host, done
 
 
 def run_video_pipeline(fisr_model: fisrnet.FISRnet, pwc_model: pwcnet.PWCNet,
@@ -326,8 +309,10 @@ def _fused_windows(fisr_model, pwc_model, frames, emit, policy, flow_upscale, fi
     pair_fn = make_pair_fn(pwc_model.cfg, policy, flow_upscale)
     window_fn = make_fisr_window_fn(policy, fisr_grid=fisr_grid)
 
-    def drain(fr, download):
-        emit(fr, download.result())
+    def drain(fr, host, done):
+        if done is not None:
+            done.synchronize()
+        emit(fr, host.numpy())
         if verbose:
             print(f"<FISR fused> window [{fr + 1}/{n - 2}]", flush=True)
 
@@ -338,12 +323,11 @@ def _fused_windows(fisr_model, pwc_model, frames, emit, policy, flow_upscale, fi
         d2 = _upload(frames, fr + 2, h, w, dev)
         new_pair = pair_fn(pwc_model, d1, d2)
         pred = window_fn(fisr_model, torch.stack([d0, d1, d2], dim=1), prev_pair, new_pair)
-        download = _Download(dev)
-        download.start((pred[0] * 255).to(torch.uint8))
+        host, done = _start_download((pred[0] * 255).to(torch.uint8))
         d0, d1, prev_pair = d1, d2, new_pair
         if pending is not None:
             drain(*pending)
-        pending = (fr, download)
+        pending = (fr, host, done)
     drain(*pending)
 
 

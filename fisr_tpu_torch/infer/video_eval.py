@@ -16,8 +16,8 @@ into the reference's two metric families —
 — the same split the test phase reports (fr2 vs fr1/fr3,
 FISRnet.py:913-933; see write_synthetic_video_scene's docstring for the
 file-index <-> half-step derivation). PSNR on YUV in [0,1] (utils.py:161
-`_compute_psnr` semantics) + the package's Gaussian SSIM, computed on
-the CPU (ops/metrics.ssim on numpy arrays).
+`_compute_psnr` semantics) in numpy float64 + the package's Gaussian SSIM
+(ops/metrics.ssim) on the device the caller names.
 """
 
 from __future__ import annotations
@@ -28,8 +28,10 @@ import os
 import re
 
 import numpy as np
+import torch
 
 from fisr_tpu_torch.data.png_io import read_png
+from fisr_tpu_torch.device import resolve_device
 from fisr_tpu_torch.ops import metrics as M
 
 __all__ = ["VideoEvalResult", "evaluate_video_folder"]
@@ -59,9 +61,11 @@ def _indexed(folder: str, pattern: str) -> dict:
 
 
 def evaluate_video_folder(pred_folder: str, gt_folder: str,
-                          compute_ssim: bool = True) -> VideoEvalResult:
+                          compute_ssim: bool = True, device="cuda") -> VideoEvalResult:
     """Score `pred_YUV_{k}.png` frames against GT `*_{k}.png` of the same
-    index k (see `write_synthetic_video_scene` for why indices align)."""
+    index k (see `write_synthetic_video_scene` for why indices align). The
+    Gaussian SSIM of each frame runs on `device`."""
+    dev = resolve_device(device)
     preds = _indexed(pred_folder, "pred_YUV_*.png")
     gts = _indexed(gt_folder, "*.png")
     common = sorted(set(preds) & set(gts))
@@ -78,8 +82,9 @@ def evaluate_video_folder(pred_folder: str, gt_folder: str,
             raise ValueError(f"frame {k}: pred {p.shape} != gt {g.shape}")
         psnr[k % 2].append(M.psnr_np(g, p, 1.0))
         if compute_ssim:
-            ssim[k % 2].append(float(M.ssim(p.astype(np.float32),
-                                            g.astype(np.float32))))
+            ssim[k % 2].append(float(M.ssim(
+                torch.from_numpy(p.astype(np.float32)).to(dev),
+                torch.from_numpy(g.astype(np.float32)).to(dev))))
 
     def mean(xs):
         return float(np.mean(xs)) if xs else float("nan")

@@ -222,31 +222,6 @@ def _fold_up_conv_weights(w: torch.Tensor) -> torch.Tensor:
     return wp.reshape(4 * w.shape[0], w.shape[1], 3, 3)
 
 
-def _folded_up_weight(p: Conv, dt: torch.dtype) -> torch.Tensor:
-    """`_fold_up_conv_weights(p.weight)` in `dt`, cached on `p` for inference.
-
-    The fold costs 0.39-0.62 ms a call (an einsum's small kernels and a
-    host-to-device copy of the stencil; NVIDIA H100 80GB HBM3 at 700 W,
-    `chip_smoke.py`, phase `tiled`), twice a window, where a jitted program
-    folds once; the kept copy costs 0.003 ms. The cache entry is keyed by everything that can make
-    it stale: the weight's `_version` (every in-place update bumps it: an
-    optimiser step, `load_state_dict`, `copy_`), its storage pointer and
-    device (`.to()` and `.data = ` replace them) and `dt`. It is not used
-    where it could not be trusted: with autograd on (the fold must stay in
-    the graph) and for a weight that is an inference tensor (no version
-    counter, so an update in place would go unseen).
-    """
-    w = p.weight
-    if torch.is_grad_enabled() or w.is_inference():
-        return _fold_up_conv_weights(w).to(dt)
-    key = (w._version, w.data_ptr(), w.device, dt)
-    cached = getattr(p, "_up_fold", None)
-    if cached is None or cached[0] != key:
-        cached = (key, _fold_up_conv_weights(w.detach()).to(dt))
-        p._up_fold = cached
-    return cached[1]
-
-
 def up_conv2x(p: Conv, x: torch.Tensor, policy: Policy = F32) -> torch.Tensor:
     """`conv2d(p, upsample2x_bilinear(x))` as one subpixel conv at the input's
     resolution, with 4*c_out output channels.
@@ -258,12 +233,12 @@ def up_conv2x(p: Conv, x: torch.Tensor, policy: Policy = F32) -> torch.Tensor:
     pad). Patch-tiled inference trims at least 2 px everywhere but at the
     true canvas border, so the inference paths opt in (`fast_upsample`).
 
-    Without autograd the folded weight is kept on `p` beside the weight it
-    came from and is folded again when the weight's version counter, storage,
-    device or the compute dtype has changed (`_folded_up_weight`).
+    The weight is folded on every call, so an updated weight is never met
+    by a stale fold: 0.35-0.41 ms a call, twice a tiled window of 88 ms
+    (NVIDIA H100 80GB HBM3 at 700 W, `chip_smoke.py`, phase `tiled`).
     """
     dt = policy.compute_dtype
-    wp = _folded_up_weight(p, dt)
+    wp = _fold_up_conv_weights(p.weight).to(dt)
     out = F.conv2d(x.to(dt).permute(0, 3, 1, 2), wp, None, 1, 1).permute(0, 2, 3, 1)
     return depth_to_space(out, 2) + p.bias.to(dt)
 

@@ -6,9 +6,11 @@
 Writes `--frames` synthetic 1024x1920 YUV PNGs, then runs the fused bf16
 pipeline (full-width deterministic weights, flow_upscale=2) `--calls` times
 and prints each call's wall seconds (the first pays the conv library's
-set-up) with the card's name and power limit. `--root` names the checkout
-whose fisr_tpu_torch is imported (default: this script's), so two trees can
-be timed in turns on one card. The last line is one JSON object.
+set-up) with the card's name and power limit. `--root` names the tree whose
+fisr_tpu_torch is imported: this script's repository (the default) or a copy
+of another commit unpacked inside it (e.g. `git archive` into `build/`), so
+two trees can be timed in turns on one card; a directory outside the
+repository is refused. The last line is one JSON object.
 """
 
 from __future__ import annotations
@@ -36,10 +38,13 @@ def synthetic_frames(n, h, w, seed=0):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    repo = os.path.dirname(os.path.dirname(os.path.realpath(__file__)))
+    ap.add_argument("--root", default=repo)
     ap.add_argument("--frames", type=int, default=6)
     ap.add_argument("--calls", type=int, default=3)
     args = ap.parse_args()
+    if os.path.commonpath([repo, os.path.realpath(args.root)]) != repo:
+        ap.error(f"--root must lie inside {repo}")
     if not torch.cuda.is_available():
         print("time_torch_pipeline: needs a CUDA card", file=sys.stderr)
         return 1

@@ -243,13 +243,13 @@ def test_evaluate_video_folder_matches_jax(tmp_path):
         write_png(p, pred_dir / f"pred_YUV_{k}.png")
         write_png(p, pred_dir / f"pred_{k}.png")  # RGB twin: not scored
     want = jvideo_eval.evaluate_video_folder(str(pred_dir), str(gt_dir))
-    got = video_eval.evaluate_video_folder(str(pred_dir), str(gt_dir))
+    got = video_eval.evaluate_video_folder(str(pred_dir), str(gt_dir), device="cpu")
     assert (got.n_vfi_sr, got.n_sr) == (want.n_vfi_sr, want.n_sr) == (3, 2)
     for field in FIELDS:
         assert abs(getattr(got, field) - getattr(want, field)) < 1e-6, field
     assert got.as_dict().keys() == want.as_dict().keys()
     with pytest.raises(ValueError, match="index-aligned"):
-        video_eval.evaluate_video_folder(str(gt_dir), str(tmp_path))
+        video_eval.evaluate_video_folder(str(gt_dir), str(tmp_path), device="cpu")
 
 
 @pytest.mark.parametrize("engine", ["exact", "fast"])

@@ -124,33 +124,26 @@ def test_up_conv2x_matches_jax_and_composition_on_interior():
     assert np.abs(got - composed).max() > 1e-3  # the border does differ
 
 
-def test_up_conv2x_fold_cache_follows_the_weight():
-    """The folded weight is reused only while the weight is what it was
-    folded from: an in-place update, a new dtype, autograd or a weight
-    without a version counter each fold again."""
+def test_up_conv2x_folds_the_weight_it_is_given():
+    """The weight is folded on every call: an in-place update shows in the
+    next call (with autograd off, in inference mode and in another dtype),
+    and with autograd on the fold is part of the graph."""
     c = conv.Conv(4, 6)
     with torch.no_grad():
         c.weight.copy_(torch.from_numpy(_x(31, (6, 4, 3, 3))))
     x = torch.from_numpy(_x(32, (1, 6, 8, 4)))
     with torch.no_grad():
-        first = conv._folded_up_weight(c, torch.float32)
-        assert conv._folded_up_weight(c, torch.float32) is first
-        assert conv._folded_up_weight(c, torch.bfloat16).dtype == torch.bfloat16
         before = conv.up_conv2x(c, x)
         c.weight.mul_(2.0)
-        second = conv._folded_up_weight(c, torch.float32)
-        assert second is not first
-        torch.testing.assert_close(second, conv._fold_up_conv_weights(c.weight))
         torch.testing.assert_close(conv.up_conv2x(c, x) - c.bias, 2 * (before - c.bias))
-    grad = conv._folded_up_weight(c, torch.float32)  # autograd on: folded in the graph
-    assert grad.requires_grad and grad is not second
+        assert conv.up_conv2x(c, x, conv.BF16).dtype == torch.bfloat16
     conv.up_conv2x(c, x).sum().backward()
     assert c.weight.grad.abs().sum() > 0
     with torch.inference_mode():
         frozen = conv.Conv(4, 6)  # its weight is an inference tensor: no version counter
-        a = conv._folded_up_weight(frozen, torch.float32)
+        a = conv.up_conv2x(frozen, x)
         frozen.weight.add_(1.0)
-        assert not torch.equal(conv._folded_up_weight(frozen, torch.float32), a)
+        assert not torch.equal(conv.up_conv2x(frozen, x), a)
 
 
 def test_dec_level_fast_upsample_matches_jax():
