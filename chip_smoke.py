@@ -39,6 +39,28 @@ Phases (any failure raises and exits non-zero):
    (12 patches of 544x992x29 in one batch), PSNR and both SSIMs; ssim on the
    card against tests/fixtures/tf_oracle/ssim_tf.npz; a runner that returns
    the ground truth must score SSIM 1 and a PSNR above 120 dB.
+8. train  - train/loop.fit at full width (FISRnet ch=64) on
+   data/synth.synthetic_store(h=96, w=96), batch 8, val batch 2, bf16: one
+   epoch of 6 steps with validation, the TensorBoard log and a checkpoint; a
+   second fit call resumes from it and must return the saved step and
+   parameters bit for bit; a third trains a second epoch. The first step's
+   ten loss terms in f32 on the card against the same step on the CPU
+   (rtol 1e-4); repeated steps on one batch must lower total_loss. Prints ms
+   per step in f32 and bf16, samples/s and peak memory.
+9. pwc_train - train/pwc_trainer.make_pwc_train_step at full width (PWC-Net
+   lg-6-2) on FlowDataset.synthetic_textured, batch 8 of 256x448, multiscale
+   loss: 5 cost-volume launches a step, fma_f32 under F32 and mma_bf16 under
+   BF16; in f32 the parameter gradients through the kernel against those
+   through the plain version (1e-5 of the largest gradient); the loss must
+   fall over repeated steps on one batch; make_pwc_eval_step must give a
+   finite EPE. Prints ms per step and, of it, the time inside the cost
+   volume's backward (the plain version's autograd) per level, and times
+   that backward alone at the five level shapes.
+10. joint - train/joint.make_joint_train_step on
+   data/synth.synthetic_video_windows(h=96, w=96), B=2, upscale=2: with both
+   optimizers (10 launches a step = 2 flow calls x 5 levels; both models
+   move; joint_loss falls on one batch), then with the flow model frozen (10
+   launches, only FISRnet moves). Prints ms per step and peak memory.
 
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -67,6 +89,10 @@ LEVEL_CHANNELS = {2: 32, 3: 64, 4: 96, 5: 128, 6: 196}
 SMALL_TOL = 1e-4   # kernel vs plain path through both networks, outputs in [0, 1]
 ORACLE_TOL = 1e-5  # card (f32, TF32 off) vs the TF-oracle fixtures
 TILED_TOL = 1e-5   # device tiling vs host padded tiling, fused glue vs composed (f32)
+TRAIN_TOL = 1e-4   # first train step's loss terms, card (f32, TF32 off) vs CPU, relative
+GRAD_TOL = 1e-5    # PWC-Net parameter gradients, kernel vs plain forward, of the largest gradient
+TRAIN_PATCH = 96   # the reference's training patches
+PWC_CROP = (256, 448)  # upstream tfoptflow's training crop
 SHRINK_TOL = 1e-6  # stale-halo shrink vs the full ring (f32): equal unless cuDNN changes algorithm
 # staged (exact (2, 2) tiling) vs fused (full frame) output frames, bf16, in u8
 # counts: the halo truncates the receptive field and another conv extent may
@@ -240,10 +266,11 @@ def reset_launches(kernel):
     kernel.LAUNCHES_BY_VARIANT.update(mma_bf16=0, fma_f32=0)
 
 
-def require_launches(kernel, what, want=15):
-    if kernel.LAUNCHES != want or kernel.LAUNCHES_BY_VARIANT != {"mma_bf16": want, "fma_f32": 0}:
+def require_launches(kernel, what, want=15, variant="mma_bf16"):
+    by_variant = {v: (want if v == variant else 0) for v in kernel.LAUNCHES_BY_VARIANT}
+    if kernel.LAUNCHES != want or kernel.LAUNCHES_BY_VARIANT != by_variant:
         raise AssertionError(f"{what} made {kernel.LAUNCHES} cost-volume launches "
-                             f"({kernel.LAUNCHES_BY_VARIANT}), want {want}, all mma_bf16")
+                             f"({kernel.LAUNCHES_BY_VARIANT}), want {want}, all {variant}")
 
 
 def phase_full(fisr, pwc, tmp):
@@ -552,6 +579,326 @@ def phase_eval(fisr, tmp):
     return results["gaussian"].sec_per_frame, peak_gib
 
 
+def wall_ms(fn, reps=5, warmup=1):
+    """Host clock around `reps` calls that end in a synchronise: a training
+    step's time as its caller sees it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def device_busy(fn, reps=3):
+    """(ms the card is busy, CUDA kernels and copies) a call of `fn`, from
+    torch.profiler: beside the call's wall time they say how far the host's
+    launches hold the card back."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    on_card = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    if not on_card:
+        raise AssertionError("torch.profiler recorded no device activity")
+    return sum(ev.device_time for ev in on_card) / 1e3 / reps, len(on_card) / reps
+
+
+def moved(before, model):
+    return any(not torch.equal(a, b) for a, b in zip(before, model.parameters()))
+
+
+def snapshot(model):
+    return [p.detach().clone() for p in model.parameters()]
+
+
+def phase_train(tmp):
+    from fisr_tpu_torch.convert import params
+    from fisr_tpu_torch.data.synth import synthetic_store
+    from fisr_tpu_torch.kernels import cost_volume as kernel
+    from fisr_tpu_torch.ops.conv import BF16, F32
+    from fisr_tpu_torch.train import trainer
+    from fisr_tpu_torch.train.checkpoint import CheckpointManager
+    from fisr_tpu_torch.train.loop import fit
+
+    steps, batch_size = 6, 8
+    store = synthetic_store(n_samples=steps * batch_size + 2, h=TRAIN_PATCH, w=TRAIN_PATCH,
+                            seed=0, val_size=2)
+    ckpt, logs = os.path.join(tmp, "train_ckpt"), os.path.join(tmp, "train_log")
+    kw = dict(ckpt_dir=ckpt, log_dir=logs, batch_size=batch_size, val_batch_size=2,
+              freq_display=2, policy=BF16, device="cuda")
+    reset_launches(kernel)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = fit(store, epochs=1, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak_fit = torch.cuda.max_memory_allocated() / 2**30
+    require_launches(kernel, "fit (FISRnet has no kernel)", want=0)
+    with open(os.path.join(logs, "metrics.jsonl")) as f:
+        rec = json.loads(f.read().splitlines()[-1])
+    if state.step != steps or rec["step"] != steps or not np.isfinite(list(rec.values())).all():
+        raise AssertionError(f"fit: step {state.step}, epoch record {rec}")
+    mgr = CheckpointManager(ckpt)
+    if mgr.latest_step() != steps:
+        raise AssertionError(f"fit left checkpoint step {mgr.latest_step()}, want {steps}")
+    log(f"[train] fit: {steps} steps of batch {batch_size} ({TRAIN_PATCH}x{TRAIN_PATCH} patches, "
+        f"bf16) + validation + checkpoint in {seconds:.2f} s, peak {peak_fit:.2f} GiB; epoch means "
+        f"total_loss {rec['total_loss']:.6f}, train_PSNR {rec['train_PSNR']:.3f}, "
+        f"val_PSNR {rec['val_PSNR']:.3f}")
+    # a second call resumes: nothing is left of epoch 0, so it returns what it restored
+    resumed = fit(store, epochs=1, **kw)
+    same = all(torch.equal(a, b) for a, b in zip(resumed.model.parameters(),
+                                                  state.model.parameters()))
+    moments = all(torch.equal(resumed.optimizer.state[a][f], state.optimizer.state[b][f])
+                  for a, b in zip(resumed.model.parameters(), state.model.parameters())
+                  for f in ("mu", "nu"))
+    if not (same and moments and resumed.step == steps and resumed.optimizer.count == steps):
+        raise AssertionError(f"resumed state differs from the saved one: step {resumed.step}, "
+                             f"parameters equal {same}, moments equal {moments}")
+    more = fit(store, epochs=2, **kw)
+    if more.step != 2 * steps or mgr.latest_step() != 2 * steps:
+        raise AssertionError(f"second epoch ended at step {more.step}")
+    log(f"[train] resume: step {resumed.step}, parameters and Adam moments bit-equal to the "
+        f"saved ones; a further call trained on to step {more.step}")
+    del state, resumed, more
+
+    # the first step in f32 on the card against the CPU, on one set of weights
+    batch = next(store.batches(batch_size, epoch_seed=0))
+    terms = {}
+    for dev in ("cuda", "cpu"):
+        model = params.deterministic_fisrnet(device=dev)
+        st = trainer.TrainState(model, trainer.adam_with_schedule(1e-4)(model.parameters()))
+        t0 = time.perf_counter()
+        st, m = trainer.make_train_step(policy=F32)(st, batch)
+        terms[dev] = {k: float(v) for k, v in m.items()}
+        log(f"[train] first f32 step on {dev}: {time.perf_counter() - t0:.2f} s, "
+            f"total_loss {terms[dev]['total_loss']:.6f}")
+        if dev == "cuda":
+            card = st
+    worst = max(abs(terms["cuda"][k] - terms["cpu"][k]) / abs(terms["cpu"][k]) for k in terms["cpu"])
+    if len(terms["cpu"]) != 11 or not worst <= TRAIN_TOL:
+        raise AssertionError(f"first step, card vs CPU: {terms} (worst {worst}, bound {TRAIN_TOL})")
+    log(f"[train] first step's ten loss terms and train_PSNR, card (f32, TF32 off) vs CPU: worst "
+        f"relative difference {worst:.3g} (bound {TRAIN_TOL})")
+
+    # repeated steps on that batch lower the loss; then ms per step in both dtypes
+    dev_batch = trainer.batch_to_device(batch, "cuda")
+    step32 = trainer.make_train_step(policy=F32)
+    totals = [terms["cuda"]["total_loss"]]
+    for _ in range(5):
+        card, m = step32(card, dev_batch)
+        totals.append(float(m["total_loss"]))
+    if not (np.isfinite(totals).all() and totals[-1] < totals[0]):
+        raise AssertionError(f"total_loss did not fall on one batch: {totals}")
+    out = {}
+    for name, policy in (("f32", F32), ("bf16", BF16)):
+        step = trainer.make_train_step(policy=policy)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = wall_ms(lambda: step(card, dev_batch))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        busy, kernels = device_busy(lambda: step(card, dev_batch))
+        out[name] = {"ms": ms, "peak_gib": peak, "busy_ms": busy, "kernels": kernels}
+    from fisr_tpu_torch.train.loop import read_metrics
+
+    _, m = step32(card, dev_batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    read_metrics(m)
+    readback_ms = 1e3 * (time.perf_counter() - t0)
+    log(f"[train] total_loss over 6 steps on one batch: {totals[0]:.6f} -> {totals[-1]:.6f}; "
+        f"batch {batch_size}: "
+        + "; ".join(f"{n} {o['ms']:.2f} ms a step ({1e3 * batch_size / o['ms']:.1f} samples/s, peak "
+                    f"{o['peak_gib']:.2f} GiB, card busy {o['busy_ms']:.2f} ms in "
+                    f"{o['kernels']:.0f} kernels)" for n, o in out.items())
+        + f"; one stacked read-back of the 11 metrics {readback_ms:.3f} ms")
+
+
+def cv_backward_ms(kernel, shape, dtype, g):
+    """The cost volume's backward alone (the plain version's autograd, as
+    _CostVolume.backward runs it) on random tensors of `shape`."""
+    a = torch.randn(shape, device="cuda", generator=g).to(dtype).requires_grad_(True)
+    b = torch.randn(shape, device="cuda", generator=g).to(dtype).requires_grad_(True)
+    out = kernel.cost_volume_cuda(a, b, D)
+    grad = torch.randn(out.shape, device="cuda", generator=g).to(dtype)
+    return time_ms(lambda: torch.autograd.grad(out, (a, b), grad, retain_graph=True),
+                   reps=5, warmup=1)
+
+
+def phase_pwc_train():
+    from fisr_tpu_torch.convert import params
+    from fisr_tpu_torch.data.flow_dataset import FlowDataset
+    from fisr_tpu_torch.kernels import cost_volume as kernel
+    from fisr_tpu_torch.models import pwcnet
+    from fisr_tpu_torch.ops.conv import BF16, F32
+    from fisr_tpu_torch.train import pwc_trainer, trainer
+    from fisr_tpu_torch.train.pwc_loss import pwcnet_loss
+
+    h, w = PWC_CROP
+    ds = FlowDataset.synthetic_textured(n=10, h=h, w=w, seed=0, val_split=0.2)
+    batch = trainer.batch_to_device(next(ds.batches(8, train=True, epoch_seed=0)), "cuda")
+    val = next(ds.batches(8, train=False))
+
+    # f32: parameter gradients through the kernel against those through the plain version
+    model = params.deterministic_pwcnet(device="cuda")
+    grads = {}
+    for impl in ("kernel", "plain"):
+        model.zero_grad(set_to_none=True)
+        reset_launches(kernel)
+        _, pyr = pwcnet.apply(model, batch["x"][:, 0], batch["x"][:, 1],
+                              pwcnet.PWCNetConfig(cost_volume_impl=impl), F32)
+        pwcnet_loss(batch["y"], pyr, list(model.parameters())).backward()
+        torch.cuda.synchronize()
+        require_launches(kernel, f"PWC-Net forward + backward ({impl})",
+                         want=5 if impl == "kernel" else 0, variant="fma_f32")
+        grads[impl] = [p.grad.clone() for p in model.parameters()]
+    top = max(float(g.abs().max()) for g in grads["plain"])
+    worst = max(float((a - b).abs().max()) for a, b in zip(grads["kernel"], grads["plain"]))
+    if not worst <= GRAD_TOL * top:
+        raise AssertionError(f"parameter gradients, kernel vs plain: {worst} against largest {top}")
+    log(f"[pwc_train] f32 parameter gradients, kernel forward vs plain forward: max |diff| "
+        f"{worst:.3g} = {worst / top:.3g} of the largest gradient (bound {GRAD_TOL})")
+
+    for name, policy, variant in (("f32", F32, "fma_f32"), ("bf16", BF16, "mma_bf16")):
+        state = pwc_trainer.create_pwc_state(0, trainer.tf_adam(1e-4), device="cuda")
+        step = pwc_trainer.make_pwc_train_step(policy=policy)
+        reset_launches(kernel)
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        require_launches(kernel, f"pwc train step ({name})", want=5, variant=variant)
+        launches = kernel.LAUNCHES
+        losses = [float(m["loss"])]
+        for _ in range(5):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"pwc loss did not fall on one batch ({name}): {losses}")
+        epe = float(pwc_trainer.make_pwc_eval_step(policy=policy)(state.model, val)["epe"])
+        if not np.isfinite(epe):
+            raise AssertionError(f"eval EPE ({name}): {epe}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = wall_ms(lambda: step(state, batch))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+        # of a step, the time inside the cost volume's backward, by level
+        events, orig = [], kernel._CostVolume.backward
+
+        def timed(ctx, g):
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            res = orig(ctx, g)
+            stop.record()
+            events.append((ctx.saved_tensors[0].shape[1], start, stop))
+            return res
+
+        kernel._CostVolume.backward = staticmethod(timed)
+        try:
+            for _ in range(3):
+                state, m = step(state, batch)
+            torch.cuda.synchronize()
+        finally:
+            kernel._CostVolume.backward = staticmethod(orig)
+        by_level = {}
+        for rows, start, stop in events:
+            lvl = int(round(np.log2(h / rows)))
+            by_level[lvl] = by_level.get(lvl, 0.0) + start.elapsed_time(stop) / 3
+        if sorted(by_level) != [2, 3, 4, 5, 6] or len(events) != 15:
+            raise AssertionError(f"cost-volume backward ran at levels {sorted(by_level)}, "
+                                 f"{len(events)} times in 3 steps")
+        inside = sum(by_level.values())
+        busy, kernels = device_busy(lambda: step(state, batch))
+        log(f"[pwc_train] {name}: 5 {variant} launches a step; loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f} over 6 steps on one batch; eval EPE {epe:.4f}; {ms:.2f} ms a step "
+            f"(batch 8 of {h}x{w}, {8e3 / ms:.1f} samples/s), peak {peak:.2f} GiB, card busy "
+            f"{busy:.2f} ms in {kernels:.0f} kernels; inside the "
+            f"cost volume's backward {inside:.2f} ms a step ({100 * inside / ms:.0f} %), by level "
+            + ", ".join(f"{lvl}: {by_level[lvl]:.2f}" for lvl in sorted(by_level)))
+
+    # that backward alone at the five level shapes of this batch
+    g = torch.Generator(device="cuda").manual_seed(5)
+    alone = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        alone[name] = {lvl: cv_backward_ms(kernel, (8, h >> lvl, w >> lvl, c), dtype, g)
+                       for lvl, c in LEVEL_CHANNELS.items()}
+        log(f"[pwc_train] cost-volume backward alone (plain version's autograd), {name}, "
+            f"[8, {h}>>l, {w}>>l, C]: "
+            + ", ".join(f"level {lvl}: {ms:.3f} ms" for lvl, ms in alone[name].items())
+            + f"; sum {sum(alone[name].values()):.3f} ms")
+    return launches, {k: sum(v.values()) for k, v in alone.items()}
+
+
+def phase_joint(fisr, pwc):
+    from fisr_tpu_torch.data.synth import synthetic_video_windows
+    from fisr_tpu_torch.kernels import cost_volume as kernel
+    from fisr_tpu_torch.ops.conv import BF16, F32
+    from fisr_tpu_torch.train import joint, trainer
+
+    frames, target = synthetic_video_windows(2, h=TRAIN_PATCH, w=TRAIN_PATCH, seed=0)
+    batch = trainer.batch_to_device({"frames": frames, "target": target}, "cuda")
+    saved = [snapshot(fisr), snapshot(pwc)]
+
+    def restore():
+        with torch.no_grad():
+            for model, snap in zip((fisr, pwc), saved):
+                for p, s in zip(model.parameters(), snap):
+                    p.copy_(s)
+                model.zero_grad(set_to_none=True)
+
+    launches = None
+    try:
+        for name, train_pwc in (("both", True), ("frozen", False)):
+            restore()  # each case starts from the weights this phase was given
+            state = joint.create_joint_state(fisr, pwc, trainer.tf_adam(1e-4),
+                                             trainer.tf_adam(1e-5) if train_pwc else None)
+            step = joint.make_joint_train_step(policy=F32, upscale=FLOW_UPSCALE)
+            before = [snapshot(fisr), snapshot(pwc)]
+            reset_launches(kernel)
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            require_launches(kernel, f"joint step ({name})", want=10, variant="fma_f32")
+            launches = kernel.LAUNCHES
+            if not moved(before[0], fisr) or moved(before[1], pwc) != train_pwc:
+                raise AssertionError(f"joint step ({name}): FISRnet moved {moved(before[0], fisr)}, "
+                                     f"PWC-Net moved {moved(before[1], pwc)}")
+            losses = [float(m["joint_loss"])]
+            for _ in range(5):
+                state, m = step(state, batch)
+                losses.append(float(m["joint_loss"]))
+            if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+                raise AssertionError(f"joint_loss did not fall on one batch ({name}): {losses}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = wall_ms(lambda: step(state, batch))
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            step16 = joint.make_joint_train_step(policy=BF16, upscale=FLOW_UPSCALE)
+            reset_launches(kernel)
+            step16(state, batch)
+            torch.cuda.synchronize()
+            require_launches(kernel, f"joint step ({name}, bf16)", want=10)
+            ms16 = wall_ms(lambda: step16(state, batch))
+            busy, kernels = device_busy(lambda: step(state, batch))
+            log(f"[joint] {name}: 10 cost-volume launches a step (2 flow calls x 5 levels; fma_f32 "
+                f"in f32, mma_bf16 in bf16); B=2 windows of {TRAIN_PATCH}x{TRAIN_PATCH}, upscale "
+                f"{FLOW_UPSCALE}: joint_loss {losses[0]:.6f} -> {losses[-1]:.6f} over 6 steps on one "
+                f"batch, PSNR {float(m['joint_PSNR']):.3f} dB; f32 {ms:.2f} ms a step, bf16 "
+                f"{ms16:.2f} ms, peak {peak:.2f} GiB, card busy {busy:.2f} ms in {kernels:.0f} "
+                f"kernels (f32); PWC-Net "
+                f"{'moved' if train_pwc else 'did not move'}")
+            del state
+    finally:
+        restore()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -575,6 +922,9 @@ def main() -> int:
         phase_tiled(fisr, pwc, synthetic_frames(4, *WINDOW))
         launches_staged = phase_staged(fisr, pwc, folder, tmp)
         phase_eval(fisr, tmp)
+        phase_train(tmp)
+    launches_pwc_train, backward = phase_pwc_train()
+    launches_joint = phase_joint(fisr, pwc)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     log(smi.stdout.strip().splitlines()[0])
@@ -582,7 +932,10 @@ def main() -> int:
         "name": "cost_volume", "route": "cuda", "variant": "mma_bf16",
         "source": "fisr_tpu_torch/csrc/cost_volume.cu",
         "replaces": "fisr_tpu/kernels/cost_volume_pallas.py:34",
-        "launches": launches, "launches_staged": launches_staged, "max_abs_err": max_err,
+        "launches": launches, "launches_staged": launches_staged,
+        # per training step: make_pwc_train_step, make_joint_train_step
+        "launches_train": {"pwc_train_step": launches_pwc_train, "joint_step": launches_joint},
+        "max_abs_err": max_err,
         # one frame pair's five levels (levels 6..2) in bf16, the main path's dtype
         "ms": sum(r["bf16_ms"] for r in levels),
         "graph_ms": sum(r["bf16_graph_ms"] for r in levels),
@@ -590,6 +943,9 @@ def main() -> int:
         "bound_ms": sum(r["bf16_bound_ms"] for r in levels),
         "bound_by": "bytes" if all(r["bf16_bound_by"] == "bytes" for r in levels) else "operations",
         "library_ms": None,
+        # the backward (autograd of the plain version) at the five level
+        # shapes of the pwc_train batch, [8, 256>>l, 448>>l, C]
+        "backward_ms": backward["bf16"], "backward_f32_ms": backward["f32"],
     }]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,11 @@
-"""CLI: `python -m fisr_tpu_torch.cli.main --phase {test,FISR_for_video}`.
+"""CLI: `python -m fisr_tpu_torch.cli.main --phase {train,test,FISR_for_video}`.
 
-The inference phases of fisr_tpu/cli/main.py on the port, with the JAX CLI's
-flag names and defaults:
+The phases of fisr_tpu/cli/main.py on the port, with the JAX CLI's flag names
+and defaults (the reference's own main.py:23-106):
 
+  train          - fit on the .mat / .flo corpus (the --train_*_path flags,
+                   which need h5py), checkpoints under
+                   <checkpoint_dir>/FISRnet_exp<exp_num>, then the test phase
   test           - 4K benchmark evaluation from precomputed .flo / .mat
                    inputs (--eval_engine exact|fast, --ssim_impl, --test_patch,
                    --test_input_size, the --test_*_path flags, --test_img_dir)
@@ -11,11 +14,14 @@ flag names and defaults:
                    artifacts), on the device with --fused (--fisr_grid
                    full|auto|tuned|GH,GW)
 
-Weights come from .npz files of '/'-joined JAX key paths -> arrays
-(--fisr_params_npz, --pwc_params_npz) or from the TF-oracle generator at full
-width (--deterministic_weights); one of the two is required for each model
-the phase uses. The train phase is not ported yet (ROADMAP.md, Queue 1
-item 4) and raises.
+FISRnet weights come from --fisr_params_npz (an .npz of '/'-joined JAX key
+paths -> arrays), else from the experiment's newest checkpoint
+(<checkpoint_dir>/FISRnet_exp<exp_num>, what the train phase writes), else
+from the TF-oracle generator at full width (--deterministic_weights), else a
+fresh init, said aloud (the JAX CLI's order, main.py `_load_params`). PWC-Net
+weights come from --pwc_params_npz or the generator; without either the run
+stops (its checkpoint loader is ROADMAP.md, Queue 1 item 6). The JAX CLI's
+--jax_cache_dir has no counterpart (nothing is compiled ahead of a run).
 """
 
 from __future__ import annotations
@@ -43,6 +49,48 @@ def parse_args(argv=None):
                         "patch tiling (host-staged TiledRunner); 'fast' runs the device "
                         "tiling (padded tiling + stale-halo shrink + folded upsample)")
 
+    # training corpus, directories
+    p.add_argument("--train_data_path", type=str,
+                   default="./data/train/LR_LFR/LR_Surfing_SlamDunk_5seq.mat")
+    p.add_argument("--train_flow_data_path", type=str,
+                   default="./data/train/flow/LR_Surfing_SlamDunk_5seq_ss1.flo")
+    p.add_argument("--train_flow_ss2_data_path", type=str,
+                   default="./data/train/flow/LR_Surfing_SlamDunk_5seq_ss2.flo")
+    p.add_argument("--train_warped_data_path", type=str,
+                   default="./data/train/warped/LR_Surfing_SlamDunk_5seq_ss1_warp.mat")
+    p.add_argument("--train_wapred_ss2_data_path", type=str,
+                   default="./data/train/warped/LR_Surfing_SlamDunk_5seq_ss2_warp.mat")
+    p.add_argument("--train_label_path", type=str,
+                   default="./data/train/HR_HFR/HR_Surfing_SlamDunk_5seq.mat")
+    p.add_argument("--text_dir", type=str, default="./text_dir")
+    p.add_argument("--checkpoint_dir", type=str, default="./checkpoint_dir")
+    p.add_argument("--log_dir", type=str, default="./logdir")
+
+    # training hyperparameters (main.py:64-77)
+    p.add_argument("--epoch", type=int, default=100)
+    p.add_argument("--freq_display", type=int, default=100)
+    p.add_argument("--step_timeout_s", type=float, default=0.0,
+                   help="arm the utils.watchdog heartbeat: exit 86 if no train/val step "
+                        "completes within this window, so a supervisor restarts the "
+                        "process and training resumes from the last checkpoint. 0 = off")
+    p.add_argument("--init_lr", type=float, default=1e-4)
+    p.add_argument("--lr_type", type=str, default="stair_decay",
+                   choices=["linear_decay", "stair_decay", "no_decay"])
+    p.add_argument("--lr_stair_decay_points", type=int, nargs="+", default=[80, 90])
+    p.add_argument("--lr_decreasing_factor", type=float, default=0.1)
+    p.add_argument("--lr_linear_decay_point", type=int, default=50)
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--val_batch_size", type=int, default=2)
+    p.add_argument("--val_data_size", type=int, default=320)
+
+    # loss lambdas (main.py:80-85)
+    p.add_argument("--recn_lambda", type=float, default=1.0)
+    p.add_argument("--tm1_lambda", type=float, default=1.0)
+    p.add_argument("--tm2_lambda", type=float, default=0.1)
+    p.add_argument("--tmm_lambda", type=float, default=1.0)
+    p.add_argument("--td_lambda", type=float, default=0.1)
+    p.add_argument("--ss2_lambda", type=float, default=1.0)
+
     # test phase
     p.add_argument("--test_data_path", type=str, default="./data/test/LR_LFR")
     p.add_argument("--test_flow_data_path", type=str,
@@ -52,7 +100,8 @@ def parse_args(argv=None):
     p.add_argument("--test_label_path", type=str, default="./data/test/HR_HFR")
     p.add_argument("--test_img_dir", type=str, default="./test_img_dir")
     p.add_argument("--exp_num", type=int, default=1,
-                   help="predictions go to <test_img_dir>/FISRnet_exp<exp_num>")
+                   help="names the experiment: FISRnet_exp<exp_num> under checkpoint_dir, "
+                        "log_dir and test_img_dir, and text_dir/exp_<exp_num>.txt")
     p.add_argument("--test_patch", type=int, nargs=2, default=[2, 2])
     p.add_argument("--test_input_size", type=int, nargs=2, default=[1080, 1920])
 
@@ -88,6 +137,10 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def _model_dir(args) -> str:
+    return f"FISRnet_exp{args.exp_num}"
+
+
 def _model(args, device, what):
     from fisr_tpu_torch.convert import params
 
@@ -97,8 +150,21 @@ def _model(args, device, what):
         "pwc": (params.pwcnet_from_jax, params.deterministic_pwcnet)}[what]
     if npz:
         return from_jax(params.tree_from_npz(npz), device=device)
+    ckpt = os.path.join(args.checkpoint_dir, _model_dir(args))
+    if what == "fisr" and os.path.isdir(ckpt):
+        from fisr_tpu_torch.train.checkpoint import CheckpointManager
+
+        mgr = CheckpointManager(ckpt)
+        if mgr.latest_step() is not None:
+            print(f" [*] restored checkpoint step {mgr.latest_step()}")
+            return from_jax(mgr.restore()["params"], device=device)
     if args.deterministic_weights:
         return deterministic(device=device)
+    if what == "fisr":
+        from fisr_tpu_torch.models.fisrnet import FISRnet
+
+        print(" [!] no checkpoint found: using fresh init")
+        return FISRnet(sf=args.scale_factor, device=device)
     raise SystemExit(f"no {what} weights: pass --{what}_params_npz or --deterministic_weights")
 
 
@@ -106,6 +172,41 @@ def _policy(args):
     from fisr_tpu_torch.ops.conv import BF16, F32
 
     return BF16 if args.compute_dtype == "bfloat16" else F32
+
+
+def run_train(args, device):
+    from fisr_tpu_torch.data.dataset import TrainStore
+    from fisr_tpu_torch.models.fisrnet import FISRnet
+    from fisr_tpu_torch.train.loop import fit
+    from fisr_tpu_torch.train.losses import LossWeights
+    from fisr_tpu_torch.utils.summary import print_params
+
+    for d in (args.checkpoint_dir, args.text_dir, args.log_dir):
+        os.makedirs(d, exist_ok=True)
+    # arg dump parity (main.py:131-134)
+    with open(os.path.join(args.text_dir, f"exp_{args.exp_num}.txt"), "a") as log:
+        log.write("----- Model parameters -----\n")
+        for k, v in vars(args).items():
+            log.write(f"{k} : {v}\n")
+    print_params(FISRnet(device="cpu"), name="FISRnet")
+
+    store = TrainStore.from_files(
+        args.train_data_path, args.train_label_path, args.train_flow_data_path,
+        args.train_flow_ss2_data_path, args.train_warped_data_path,
+        args.train_wapred_ss2_data_path, val_size=args.val_data_size)
+    weights = LossWeights(recn=args.recn_lambda, tm1=args.tm1_lambda, tm2=args.tm2_lambda,
+                          tmm=args.tmm_lambda, td=args.td_lambda, ss2=args.ss2_lambda)
+    return fit(store,
+               ckpt_dir=os.path.join(args.checkpoint_dir, _model_dir(args)),
+               log_dir=os.path.join(args.log_dir, _model_dir(args)),
+               epochs=args.epoch, batch_size=args.batch_size,
+               val_batch_size=args.val_batch_size, init_lr=args.init_lr,
+               lr_type=args.lr_type, lr_stair_decay_points=args.lr_stair_decay_points,
+               lr_decreasing_factor=args.lr_decreasing_factor,
+               lr_linear_decay_point=args.lr_linear_decay_point,
+               loss_weights=weights, freq_display=args.freq_display,
+               policy=_policy(args), step_timeout_s=args.step_timeout_s or None,
+               device=device)
 
 
 def run_test(args, device):
@@ -119,7 +220,7 @@ def run_test(args, device):
     return evaluate_test_set(
         runner, args.test_data_path, args.test_label_path, args.test_flow_data_path,
         args.test_warped_data_path,
-        out_dir=os.path.join(args.test_img_dir, f"FISRnet_exp{args.exp_num}"),
+        out_dir=os.path.join(args.test_img_dir, _model_dir(args)),
         input_size=tuple(args.test_input_size), ssim_impl=args.ssim_impl)
 
 
@@ -138,11 +239,13 @@ def run_video(args, device):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.phase == "train":
-        raise NotImplementedError("phase 'train' is not ported yet (ROADMAP.md, Queue 1 item 4)")
     from fisr_tpu_torch.device import resolve_device
 
     device = resolve_device(args.device)
+    if args.phase == "train":
+        run_train(args, device)
+        print("[*] Training finished! Testing starts")
+        return run_test(args, device)
     # the runners, the pipeline's stages and the metrics turn autograd off themselves
     return run_test(args, device) if args.phase == "test" else run_video(args, device)
 

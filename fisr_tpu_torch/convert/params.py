@@ -7,6 +7,12 @@ conversion is a rename plus one layout permute for every 4-D kernel:
 conv HWIO [k, k, in, out] -> OIHW [out, in, k, k], and TF conv2d_transpose
 [k, k, out, in] -> torch conv_transpose2d [in, out, k, k]. Both are
 `transpose(3, 2, 0, 1)`.
+
+Training state crosses the same way: the JAX package's ScaleByAdamState
+(`count`, `mu`, `nu`; the moments are trees shaped like the params) <-> the
+state of `train/trainer.TFAdam`, the moments permuted like their kernels.
+`train_state_tree` is what a checkpoint of the port stores, and is the JAX
+package's {"params", "opt_state", "step"} tree as numpy arrays.
 """
 
 from __future__ import annotations
@@ -23,7 +29,9 @@ from fisr_tpu_torch.models.pwcnet import PWCNet, PWCNetConfig
 
 __all__ = ["fisrnet_name_map", "pwcnet_name_map", "fisrnet_from_jax",
            "pwcnet_from_jax", "from_tf_vars", "to_jax_tree", "tree_from_npz",
-           "deterministic_fisrnet", "deterministic_pwcnet"]
+           "flatten_tree", "deterministic_fisrnet", "deterministic_pwcnet",
+           "adam_state_to_jax", "load_adam_state_", "train_state_tree",
+           "load_train_state_"]
 
 _LEAF_TO_TORCH = {"w": "weight", "b": "bias"}
 _LEAF_TO_JAX = {"weight": "w", "bias": "b"}
@@ -97,10 +105,11 @@ def pwcnet_name_map(pyr_lvls: int = 6, flow_pred_lvl: int = 2,
     return m
 
 
-def _flatten(tree, prefix=()):
+def flatten_tree(tree, prefix=()):
+    """(key path, leaf) pairs of a nested dict, depth first."""
     for k, v in tree.items():
         if isinstance(v, dict):
-            yield from _flatten(v, prefix + (k,))
+            yield from flatten_tree(v, prefix + (k,))
         else:
             yield prefix + (k,), v
 
@@ -111,14 +120,32 @@ def _set_path(tree: dict, path: tuple, value) -> None:
     tree[path[-1]] = value
 
 
-def _load_tree_(model: nn.Module, tree: dict) -> nn.Module:
+def _torch_items(tree: dict) -> Dict[str, torch.Tensor]:
+    """A tree in the JAX layout as {torch parameter name: tensor}."""
     state = {}
-    for path, arr in _flatten(tree):
+    for path, arr in flatten_tree(tree):
         a = np.asarray(arr, np.float32)
         if a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)
         state[".".join(path[:-1] + (_LEAF_TO_TORCH[path[-1]],))] = torch.from_numpy(
             np.array(a, order="C"))
+    return state
+
+
+def _jax_tree(named_tensors) -> dict:
+    """(torch parameter name, tensor) pairs as a tree in the JAX layout."""
+    tree: dict = {}
+    for key, t in named_tensors:
+        a = t.detach().cpu().float().numpy()
+        if a.ndim == 4:
+            a = a.transpose(2, 3, 1, 0)
+        parts = key.split(".")
+        _set_path(tree, tuple(parts[:-1]) + (_LEAF_TO_JAX[parts[-1]],), np.ascontiguousarray(a))
+    return tree
+
+
+def _load_tree_(model: nn.Module, tree: dict) -> nn.Module:
+    state = _torch_items(tree)
     want = model.state_dict()
     if set(state) != set(want):
         missing = sorted(set(want) - set(state))[:3]
@@ -167,14 +194,7 @@ def from_tf_vars(tf_vars: Dict[str, np.ndarray], model: str,
 
 def to_jax_tree(model: nn.Module) -> dict:
     """The module's weights as the JAX package's nested dict, JAX layouts."""
-    tree: dict = {}
-    for key, t in model.state_dict().items():
-        a = t.detach().cpu().float().numpy()
-        if a.ndim == 4:
-            a = a.transpose(2, 3, 1, 0)
-        parts = key.split(".")
-        _set_path(tree, tuple(parts[:-1]) + (_LEAF_TO_JAX[parts[-1]],), np.ascontiguousarray(a))
-    return tree
+    return _jax_tree(model.state_dict().items())
 
 
 def tree_from_npz(path: str) -> dict:
@@ -187,7 +207,7 @@ def tree_from_npz(path: str) -> dict:
 
 
 def _tf_shapes(model: nn.Module, name_map: Dict[str, tuple]) -> Dict[str, tuple]:
-    flat = dict(_flatten(to_jax_tree(model)))
+    flat = dict(flatten_tree(to_jax_tree(model)))
     return {name: flat[path].shape for name, path in name_map.items()}
 
 
@@ -202,3 +222,40 @@ def deterministic_pwcnet(cfg: PWCNetConfig = PWCNetConfig(), device="cuda") -> P
     name_map = pwcnet_name_map(cfg.pyr_lvls, cfg.flow_pred_lvl, cfg.use_res_cx)
     shapes = _tf_shapes(PWCNet(cfg, device="cpu"), name_map)
     return from_tf_vars(deterministic_tf_vars(shapes), "pwcnet", cfg, device=device)
+
+
+def adam_state_to_jax(model: nn.Module, optimizer) -> dict:
+    """The TFAdam state over `model`'s parameters as the fields of the JAX
+    package's ScaleByAdamState: {"count": int32, "mu": tree, "nu": tree}."""
+    named = list(model.named_parameters())
+    return {"count": np.asarray(optimizer.count, np.int32),
+            "mu": _jax_tree((k, optimizer.state[p]["mu"]) for k, p in named),
+            "nu": _jax_tree((k, optimizer.state[p]["nu"]) for k, p in named)}
+
+
+def load_adam_state_(model: nn.Module, optimizer, adam_state) -> None:
+    """A ScaleByAdamState (the named tuple with numpy or JAX leaves, or a
+    mapping with its fields) into the TFAdam over `model`'s parameters."""
+    s = adam_state._asdict() if hasattr(adam_state, "_asdict") else adam_state
+    named = dict(model.named_parameters())
+    for field in ("mu", "nu"):
+        items = _torch_items(s[field])
+        if set(items) != set(named):
+            raise KeyError(f"optimizer state {field!r} does not match the model's parameters")
+        with torch.no_grad():
+            for k, v in items.items():
+                optimizer.state[named[k]][field].copy_(v)
+    optimizer.count = int(np.asarray(s["count"]))
+
+
+def train_state_tree(model: nn.Module, optimizer, step: int) -> dict:
+    """What a checkpoint stores: the JAX package's TrainState as numpy."""
+    return {"params": to_jax_tree(model), "opt_state": adam_state_to_jax(model, optimizer),
+            "step": np.asarray(step, np.int32)}
+
+
+def load_train_state_(model: nn.Module, optimizer, tree: dict) -> int:
+    """`train_state_tree`'s inverse, in place; returns the step."""
+    _load_tree_(model, tree["params"])
+    load_adam_state_(model, optimizer, tree["opt_state"])
+    return int(np.asarray(tree["step"]))

@@ -17,7 +17,7 @@ import zlib
 
 import numpy as np
 
-__all__ = ["read_png", "write_png", "list_pngs"]
+__all__ = ["read_png", "write_png", "encode_png", "list_pngs"]
 
 _SIG = b"\x89PNG\r\n\x1a\n"
 _RGB = 2  # IHDR colour type
@@ -28,19 +28,25 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
 
-def write_png(img_u8: np.ndarray, path: str | os.PathLike) -> None:
-    """Write uint8 [H, W, 3] as an 8-bit RGB PNG."""
+def encode_png(img_u8: np.ndarray) -> bytes:
+    """uint8 [H, W, 3] as the bytes of an 8-bit RGB PNG file."""
     a = np.asarray(img_u8, dtype=np.uint8)
     if a.ndim != 3 or a.shape[2] != 3:
-        raise ValueError(f"write_png takes [H, W, 3] uint8, got shape {a.shape}")
+        raise ValueError(f"a PNG frame is [H, W, 3] uint8, got shape {a.shape}")
     h, w, _ = a.shape
     raw = np.zeros((h, 1 + w * 3), np.uint8)  # leading 0 = filter "none"
     raw[:, 1:] = a.reshape(h, w * 3)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, _RGB, 0, 0, 0)
+    return (_SIG + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(img_u8: np.ndarray, path: str | os.PathLike) -> None:
+    """Write uint8 [H, W, 3] as an 8-bit RGB PNG."""
+    data = encode_png(img_u8)
     with open(path, "wb") as f:
-        f.write(_SIG + _chunk(b"IHDR", ihdr)
-                + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
-                + _chunk(b"IEND", b""))
+        f.write(data)
 
 
 def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:

@@ -23,10 +23,13 @@ def dense_image_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """img [B, H, W, C], flow [B, H, W, 2] (u, v) -> [B, H, W, C]."""
     b, h, w, c = img.shape
     dtype, dev = img.dtype, img.device
-    gx = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
-    gy = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
-    qx = (gx + flow[..., 0].float()).clamp(0.0, w - 1.0)
-    qy = (gy + flow[..., 1].float()).clamp(0.0, h - 1.0)
+    # coordinates in f32 whatever the compute dtype (f64 for an f64 flow, as
+    # a gradient check passes it)
+    ct = torch.promote_types(flow.dtype, torch.float32)
+    gx = torch.arange(w, dtype=ct, device=dev)[None, None, :]
+    gy = torch.arange(h, dtype=ct, device=dev)[None, :, None]
+    qx = (gx + flow[..., 0].to(ct)).clamp(0.0, w - 1.0)
+    qy = (gy + flow[..., 1].to(ct)).clamp(0.0, h - 1.0)
     x0 = torch.floor(qx)
     y0 = torch.floor(qy)
     fx = (qx - x0).to(dtype)[..., None]
