@@ -55,7 +55,10 @@ Phases (any failure raises and exits non-zero):
    fall over repeated steps on one batch; make_pwc_eval_step must give a
    finite EPE. Prints ms per step and, of it, the time inside the cost
    volume's backward (the plain version's autograd) per level, and times
-   that backward alone at the five level shapes.
+   that backward alone at the five level shapes. Then pwc_fit for 2 steps
+   with a validation round, the flow panel and a checkpoint (20 launches, all
+   mma_bf16), and pwc_eval_report on the result (finite rows, .flo and PNG
+   predictions).
 10. joint - train/joint.make_joint_train_step on
    data/synth.synthetic_video_windows(h=96, w=96), B=2, upscale=2: with both
    optimizers (10 launches a step = 2 flow calls x 5 levels; both models
@@ -733,13 +736,14 @@ def cv_backward_ms(kernel, shape, dtype, g):
                    reps=5, warmup=1)
 
 
-def phase_pwc_train():
+def phase_pwc_train(tmp):
     from fisr_tpu_torch.convert import params
     from fisr_tpu_torch.data.flow_dataset import FlowDataset
     from fisr_tpu_torch.kernels import cost_volume as kernel
     from fisr_tpu_torch.models import pwcnet
     from fisr_tpu_torch.ops.conv import BF16, F32
-    from fisr_tpu_torch.train import pwc_trainer, trainer
+    from fisr_tpu_torch.train import pwc_trainer, schedule, trainer
+    from fisr_tpu_torch.train.checkpoint import CheckpointManager
     from fisr_tpu_torch.train.pwc_loss import pwcnet_loss
 
     h, w = PWC_CROP
@@ -833,6 +837,29 @@ def phase_pwc_train():
             f"[8, {h}>>l, {w}>>l, C]: "
             + ", ".join(f"level {lvl}: {ms:.3f} ms" for lvl, ms in alone[name].items())
             + f"; sum {sum(alone[name].values()):.3f} ms")
+
+    # the step-driven loop and the per-sample report, as a user calls them
+    ckpt, preds = os.path.join(tmp, "pwc_ckpt"), os.path.join(tmp, "pwc_preds")
+    reset_launches(kernel)
+    t0 = time.perf_counter()
+    state = pwc_trainer.pwc_fit(ds, ckpt, steps=2, batch_size=8, val_every=2, display_every=1,
+                                schedule_fn=schedule.no_decay(1e-4), policy=BF16,
+                                log_dir=os.path.join(tmp, "pwc_log"), device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    # 2 steps + one validation batch + the flow panel, 5 levels each
+    require_launches(kernel, "pwc_fit (2 steps, 1 validation batch, 1 panel)", want=20)
+    saved = CheckpointManager(ckpt, best_mode="min").restore()
+    avg_epe, avg_dur, rows = pwc_trainer.pwc_eval_report(state.model, ds, batch_size=8, policy=BF16,
+                                                         save_preds_dir=preds)
+    if not (state.step == 2 == int(saved["step"]) and len(rows) == ds.val_size == 2
+            and np.isfinite([avg_epe, avg_dur] + [r["EPE"] for r in rows]).all()
+            and len(os.listdir(preds)) == 2 * ds.val_size):
+        raise AssertionError(f"pwc_fit / pwc_eval_report: step {state.step}, rows {rows}, "
+                             f"files {os.listdir(preds)}")
+    log(f"[pwc_train] pwc_fit: 2 steps + validation + flow panel + checkpoint in {seconds:.2f} s, "
+        f"20 mma_bf16 launches; pwc_eval_report: {len(rows)} rows, EPE {avg_epe:.4f}, "
+        f"{1e3 * avg_dur:.2f} ms a sample")
     return launches, {k: sum(v.values()) for k, v in alone.items()}
 
 
@@ -923,7 +950,7 @@ def main() -> int:
         launches_staged = phase_staged(fisr, pwc, folder, tmp)
         phase_eval(fisr, tmp)
         phase_train(tmp)
-    launches_pwc_train, backward = phase_pwc_train()
+        launches_pwc_train, backward = phase_pwc_train(tmp)
     launches_joint = phase_joint(fisr, pwc)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
