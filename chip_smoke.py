@@ -36,26 +36,30 @@ Phases (any failure raises and exits non-zero):
    written and read back, without it the run says so.
 7. eval   - the reference's test setting: one synthetic scene of 5 LR frames
    1080x1920 and 7 GT frames through TiledRunner(grid=(2, 2), boundary=32)
-   (12 patches of 544x992x29 in one batch), PSNR and both SSIMs; ssim on the
+   (12 patches of 544x992x29 in one batch), PSNR and SSIM; ssim on the
    card against tests/fixtures/tf_oracle/ssim_tf.npz; a runner that returns
-   the ground truth must score SSIM 1 and a PSNR above 120 dB.
+   the ground truth must score SSIM 1 and a PSNR above 120 dB under both
+   SSIM scorers (the card's Gaussian one and the host's PIL one).
 8. train  - train/loop.fit at full width (FISRnet ch=64) on
    data/synth.synthetic_store(h=96, w=96), batch 8, val batch 2, bf16: one
    epoch of 6 steps with validation, the TensorBoard log and a checkpoint; a
    second fit call resumes from it and must return the saved step and
-   parameters bit for bit; a third trains a second epoch. The first step's
-   ten loss terms in f32 on the card against the same step on the CPU
-   (rtol 1e-4); repeated steps on one batch must lower total_loss. Prints ms
-   per step in f32 and bf16, samples/s and peak memory.
+   parameters bit for bit. The first step's ten loss terms in f32 on the card
+   against the same step on the CPU (two samples, rtol 1e-4); repeated steps
+   on one batch must lower total_loss. Prints ms per step in f32 and bf16,
+   samples/s and peak memory.
 9. pwc_train - train/pwc_trainer.make_pwc_train_step at full width (PWC-Net
    lg-6-2) on FlowDataset.synthetic_textured, batch 8 of 256x448, multiscale
    loss: 5 cost-volume launches a step, fma_f32 under F32 and mma_bf16 under
-   BF16; in f32 the parameter gradients through the kernel against those
+   BF16, and the kernel against the plain version at exactly the shapes and
+   dtypes those launches had ([8, 256>>l, 448>>l, C], down to 4x7); in f32
+   the parameter gradients through the kernel against those
    through the plain version (1e-5 of the largest gradient); the loss must
    fall over repeated steps on one batch; make_pwc_eval_step must give a
    finite EPE. Prints ms per step and, of it, the time inside the cost
    volume's backward (the plain version's autograd) per level, and times
-   that backward alone at the five level shapes. Then pwc_fit for 2 steps
+   that backward alone at the five level shapes, both as its caller waits for
+   it and as the card's busy time. Then pwc_fit for 2 steps
    with a validation round, the flow panel and a checkpoint (20 launches, all
    mma_bf16), and pwc_eval_report on the result (finite rows, .flo and PNG
    predictions).
@@ -63,7 +67,9 @@ Phases (any failure raises and exits non-zero):
    data/synth.synthetic_video_windows(h=96, w=96), B=2, upscale=2: with both
    optimizers (10 launches a step = 2 flow calls x 5 levels; both models
    move; joint_loss falls on one batch), then with the flow model frozen (10
-   launches, only FISRnet moves). Prints ms per step and peak memory.
+   launches, only FISRnet moves); the kernel against the plain version at the
+   shapes those launches had ([4, 192>>l, 192>>l, C], down to 3x3), f32 and
+   bf16. Prints ms per step and peak memory.
 
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Without a CUDA device it exits
@@ -72,6 +78,8 @@ with 1 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -148,6 +156,52 @@ def cv_bound_ms(shape, dtype):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def check_cost_volume(kernel, plain, shape, d, dtype, g):
+    """The kernel against the plain version on random card tensors of `shape`:
+    (max |diff|, c1, c2), or raises. f32 within 1e-5, bf16 within `bf16_ok`."""
+    a = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    b = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    got, want = kernel.cost_volume_cuda(a, b, d).float(), plain(a, b, d).float()
+    err = (got - want).abs().max().item()
+    ok = (torch.allclose(got, want, rtol=1e-5, atol=1e-5) if dtype == torch.float32
+          else bf16_ok(got, want))
+    if not ok:
+        raise AssertionError(f"cost volume {tuple(shape)} d={d} {dtype}: max |diff| {err}")
+    return err, a, b
+
+
+@contextlib.contextmanager
+def recorded_launches(kernel):
+    """Lists (shape, search range, dtype) of every cost-volume launch made
+    inside the block, in order."""
+    seen, orig = [], kernel._launch
+
+    def launch(c1, c2, d):
+        seen.append((tuple(c1.shape), d, c1.dtype))
+        return orig(c1, c2, d)
+
+    kernel._launch = launch
+    try:
+        yield seen
+    finally:
+        kernel._launch = orig
+
+
+def check_recorded(kernel, seen, want_shapes, what, seed):
+    """A training path's launches, as `recorded_launches` listed them, must be
+    at `want_shapes`; the kernel is then held against the plain version at
+    each of those shapes in the dtype the path gave it. Returns the largest
+    |diff|. The comparisons' own launches come after the path's were counted."""
+    from fisr_tpu_torch.ops.cost_volume import cost_volume as plain
+
+    if sorted(s for s, _, _ in seen) != sorted(want_shapes):
+        raise AssertionError(f"{what} launched the cost volume at {[s for s, _, _ in seen]}, "
+                             f"want {want_shapes}")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return max(check_cost_volume(kernel, plain, shape, d, dtype, g)[0]
+               for shape, d, dtype in dict.fromkeys(seen))
+
+
 def phase_build():
     from fisr_tpu_torch.kernels import build
 
@@ -173,16 +227,7 @@ def phase_kernel():
         shape = (2, hh >> lvl, ww >> lvl, c)
         row = {"level": lvl, "shape": list(shape)}
         for dtype in (torch.float32, torch.bfloat16):
-            a = torch.randn(shape, device=dev, generator=g).to(dtype)
-            b = torch.randn(shape, device=dev, generator=g).to(dtype)
-            got = kernel.cost_volume_cuda(a, b, D).float()
-            want = plain(a, b, D).float()
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            ok = (torch.allclose(got, want, rtol=1e-5, atol=1e-5) if dtype == torch.float32
-                  else bf16_ok(got, want))
-            if not ok:
-                raise AssertionError(f"cost volume level {lvl} {dtype}: max |diff| {err}")
+            err, a, b = check_cost_volume(kernel, plain, shape, D, dtype, g)
             max_err = max(max_err, err)
             tag = "f32" if dtype == torch.float32 else "bf16"
             bound, by = cv_bound_ms(shape, dtype)
@@ -197,15 +242,7 @@ def phase_kernel():
               ((1, 5, 40, 20), 4), ((1, 1, 1, 1), 4)]
     for dtype in (torch.float32, torch.bfloat16):
         for shape, d in ragged:
-            a = torch.randn(shape, device=dev, generator=g).to(dtype)
-            b = torch.randn(shape, device=dev, generator=g).to(dtype)
-            got, want = kernel.cost_volume_cuda(a, b, d).float(), plain(a, b, d).float()
-            err = (got - want).abs().max().item()
-            ok = (torch.allclose(got, want, rtol=1e-5, atol=1e-5) if dtype == torch.float32
-                  else bf16_ok(got, want))
-            if not ok:
-                raise AssertionError(f"ragged cost volume {shape} d={d} {dtype}: max |diff| {err}")
-            max_err = max(max_err, err)
+            max_err = max(max_err, check_cost_volume(kernel, plain, shape, d, dtype, g)[0])
     a = torch.randn((1, 8, 12, 4), device=dev, generator=g, requires_grad=True)
     b = torch.randn((1, 8, 12, 4), device=dev, generator=g, requires_grad=True)
     gk = torch.autograd.grad((kernel.cost_volume_cuda(a, b, 2) ** 2).sum(), (a, b))
@@ -535,31 +572,26 @@ def phase_eval(fisr, tmp):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    results = {}
-    for impl in ("gaussian", "pil"):
-        if have_h5py():
-            flow_path, warp_path = os.path.join(tmp, "eval.flo"), os.path.join(tmp, "eval_warp.mat")
-            if impl == "gaussian":
-                flo.write_flo_5dim(flow, flow_path)
-                matio.write_warp_mat(warp, warp_path)
-            results[impl] = evaluate.evaluate_test_set(runner, lr_dir, gt_dir, flow_path, warp_path,
-                                                       ssim_impl=impl, **kw)
-        else:
-            results[impl] = evaluate.evaluate_scenes(runner, lr_dir, gt_dir, flow, warp / 255.0,
-                                                     ssim_impl=impl, **kw)
+    if have_h5py():
+        flow_path, warp_path = os.path.join(tmp, "eval.flo"), os.path.join(tmp, "eval_warp.mat")
+        flo.write_flo_5dim(flow, flow_path)
+        matio.write_warp_mat(warp, warp_path)
+        res = evaluate.evaluate_test_set(runner, lr_dir, gt_dir, flow_path, warp_path, **kw)
+    else:
+        res = evaluate.evaluate_scenes(runner, lr_dir, gt_dir, flow, warp / 255.0, **kw)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    for impl, res in results.items():
-        vals = (res.psnr_vfi_sr, res.psnr_sr, res.ssim_vfi_sr, res.ssim_sr, res.sec_per_frame)
-        if res.n_frames != 7 or not np.isfinite(vals).all() or not (
-                -1 <= res.ssim_vfi_sr <= 1 and -1 <= res.ssim_sr <= 1):
-            raise AssertionError(f"eval ({impl}): {res}")
-        log(f"[eval] TiledRunner (2, 2) exact, bf16, ssim_impl={impl}: {res}")
+    vals = (res.psnr_vfi_sr, res.psnr_sr, res.ssim_vfi_sr, res.ssim_sr, res.sec_per_frame)
+    if res.n_frames != 7 or not np.isfinite(vals).all() or not (
+            -1 <= res.ssim_vfi_sr <= 1 and -1 <= res.ssim_sr <= 1):
+        raise AssertionError(f"eval: {res}")
+    log(f"[eval] TiledRunner (2, 2) exact, bf16, ssim_impl=gaussian: {res}")
     if len(os.listdir(kw["out_dir"])) != 7:
         raise AssertionError(f"eval wrote {os.listdir(kw['out_dir'])}")
     log(f"[eval] through {'evaluate_test_set (.flo/.mat files)' if have_h5py() else 'evaluate_scenes (no h5py here)'}: "
-        f"two passes in {seconds:.2f} s, peak {peak_gib:.2f} GiB")
+        f"one pass in {seconds:.2f} s, peak {peak_gib:.2f} GiB")
+    sec_per_frame = res.sec_per_frame
 
     class TruthRunner:
         """Returns the ground truth for each window: scoring must then be perfect."""
@@ -572,17 +604,19 @@ def phase_eval(fisr, tmp):
             return np.stack([np.concatenate(list(gt[2 * i:2 * i + 3, :hh]), 2)
                              for i in range(3)]).astype(np.float32) / 255.0
 
-    res = evaluate.evaluate_scenes(TruthRunner(), lr_dir, gt_dir, flow, warp / 255.0,
-                                   input_size=(h0, w0), verbose=False)
-    if not (res.psnr_vfi_sr > 120 and res.psnr_sr > 120 and abs(res.ssim_vfi_sr - 1) < 1e-6
-            and abs(res.ssim_sr - 1) < 1e-6 and res.n_frames == 7):
-        raise AssertionError(f"ground truth scored against itself: {res}")
-    log(f"[eval] ground truth against itself: PSNR {res.psnr_vfi_sr:.1f} / {res.psnr_sr:.1f} dB, "
-        f"SSIM {res.ssim_vfi_sr:.7f} / {res.ssim_sr:.7f}")
-    return results["gaussian"].sec_per_frame, peak_gib
+    # both SSIM scorers (the card's Gaussian one, the host's PIL one) on it
+    for impl in ("gaussian", "pil"):
+        res = evaluate.evaluate_scenes(TruthRunner(), lr_dir, gt_dir, flow, warp / 255.0,
+                                       input_size=(h0, w0), verbose=False, ssim_impl=impl)
+        if not (res.psnr_vfi_sr > 120 and res.psnr_sr > 120 and abs(res.ssim_vfi_sr - 1) < 1e-6
+                and abs(res.ssim_sr - 1) < 1e-6 and res.n_frames == 7):
+            raise AssertionError(f"ground truth scored against itself ({impl}): {res}")
+        log(f"[eval] ground truth against itself, ssim_impl={impl}: PSNR {res.psnr_vfi_sr:.1f} / "
+            f"{res.psnr_sr:.1f} dB, SSIM {res.ssim_vfi_sr:.7f} / {res.ssim_sr:.7f}")
+    return sec_per_frame, peak_gib
 
 
-def wall_ms(fn, reps=5, warmup=1):
+def wall_ms(fn, reps=3, warmup=1):
     """Host clock around `reps` calls that end in a synchronise: a training
     step's time as its caller sees it."""
     for _ in range(warmup):
@@ -595,15 +629,14 @@ def wall_ms(fn, reps=5, warmup=1):
     return 1e3 * (time.perf_counter() - t0) / reps
 
 
-def device_busy(fn, reps=3):
+def device_busy(fn, reps=2):
     """(ms the card is busy, CUDA kernels and copies) a call of `fn`, from
     torch.profiler: beside the call's wall time they say how far the host's
-    launches hold the card back."""
+    launches hold the card back. Only the card's activity is traced."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -666,21 +699,21 @@ def phase_train(tmp):
     if not (same and moments and resumed.step == steps and resumed.optimizer.count == steps):
         raise AssertionError(f"resumed state differs from the saved one: step {resumed.step}, "
                              f"parameters equal {same}, moments equal {moments}")
-    more = fit(store, epochs=2, **kw)
-    if more.step != 2 * steps or mgr.latest_step() != 2 * steps:
-        raise AssertionError(f"second epoch ended at step {more.step}")
     log(f"[train] resume: step {resumed.step}, parameters and Adam moments bit-equal to the "
-        f"saved ones; a further call trained on to step {more.step}")
-    del state, resumed, more
+        f"saved ones")
+    del state, resumed
 
     # the first step in f32 on the card against the CPU, on one set of weights
+    # (the first two samples of the first batch: the CPU's side at full width
+    # takes seconds a sample)
     batch = next(store.batches(batch_size, epoch_seed=0))
+    first = {k: v[:2] for k, v in batch.items()}
     terms = {}
     for dev in ("cuda", "cpu"):
         model = params.deterministic_fisrnet(device=dev)
-        st = trainer.TrainState(model, trainer.adam_with_schedule(1e-4)(model.parameters()))
+        st = trainer.TrainState(model, trainer.tf_adam(1e-4)(model.parameters()))
         t0 = time.perf_counter()
-        st, m = trainer.make_train_step(policy=F32)(st, batch)
+        st, m = trainer.make_train_step(policy=F32)(st, first)
         terms[dev] = {k: float(v) for k, v in m.items()}
         log(f"[train] first f32 step on {dev}: {time.perf_counter() - t0:.2f} s, "
             f"total_loss {terms[dev]['total_loss']:.6f}")
@@ -689,14 +722,14 @@ def phase_train(tmp):
     worst = max(abs(terms["cuda"][k] - terms["cpu"][k]) / abs(terms["cpu"][k]) for k in terms["cpu"])
     if len(terms["cpu"]) != 11 or not worst <= TRAIN_TOL:
         raise AssertionError(f"first step, card vs CPU: {terms} (worst {worst}, bound {TRAIN_TOL})")
-    log(f"[train] first step's ten loss terms and train_PSNR, card (f32, TF32 off) vs CPU: worst "
+    log(f"[train] first step's ten loss terms and train_PSNR (batch 2), card (f32, TF32 off) vs CPU: worst "
         f"relative difference {worst:.3g} (bound {TRAIN_TOL})")
 
     # repeated steps on that batch lower the loss; then ms per step in both dtypes
     dev_batch = trainer.batch_to_device(batch, "cuda")
     step32 = trainer.make_train_step(policy=F32)
-    totals = [terms["cuda"]["total_loss"]]
-    for _ in range(5):
+    totals = []
+    for _ in range(6):
         card, m = step32(card, dev_batch)
         totals.append(float(m["total_loss"]))
     if not (np.isfinite(totals).all() and totals[-1] < totals[0]):
@@ -725,15 +758,23 @@ def phase_train(tmp):
         + f"; one stacked read-back of the 11 metrics {readback_ms:.3f} ms")
 
 
-def cv_backward_ms(kernel, shape, dtype, g):
+def cv_backward(kernel, shapes, dtype, g):
     """The cost volume's backward alone (the plain version's autograd, as
-    _CostVolume.backward runs it) on random tensors of `shape`."""
-    a = torch.randn(shape, device="cuda", generator=g).to(dtype).requires_grad_(True)
-    b = torch.randn(shape, device="cuda", generator=g).to(dtype).requires_grad_(True)
-    out = kernel.cost_volume_cuda(a, b, D)
-    grad = torch.randn(out.shape, device="cuda", generator=g).to(dtype)
-    return time_ms(lambda: torch.autograd.grad(out, (a, b), grad, retain_graph=True),
-                   reps=5, warmup=1)
+    _CostVolume.backward runs it) on random tensors of each of `shapes`:
+    ({shape: ms a call as its caller waits for it, CUDA events}, ms the card
+    is busy over one backward at every shape, the CUDA kernels that takes).
+    The backward is some thousand small kernels, so the first is the host's
+    launch time and varies with the host's load; the second is the card's."""
+    calls, wall = [], {}
+    for shape in shapes:
+        a = torch.randn(shape, device="cuda", generator=g).to(dtype).requires_grad_(True)
+        b = torch.randn(shape, device="cuda", generator=g).to(dtype).requires_grad_(True)
+        out = kernel.cost_volume_cuda(a, b, D)
+        grad = torch.randn(out.shape, device="cuda", generator=g).to(dtype)
+        calls.append(functools.partial(torch.autograd.grad, out, (a, b), grad, retain_graph=True))
+        wall[shape] = time_ms(calls[-1], reps=5, warmup=1)
+    busy, kernels = device_busy(lambda: [call() for call in calls])
+    return wall, busy, kernels
 
 
 def phase_pwc_train(tmp):
@@ -771,14 +812,18 @@ def phase_pwc_train(tmp):
     log(f"[pwc_train] f32 parameter gradients, kernel forward vs plain forward: max |diff| "
         f"{worst:.3g} = {worst / top:.3g} of the largest gradient (bound {GRAD_TOL})")
 
+    level_shapes = [(8, h >> lvl, w >> lvl, c) for lvl, c in LEVEL_CHANNELS.items()]
+    errs = {}
     for name, policy, variant in (("f32", F32, "fma_f32"), ("bf16", BF16, "mma_bf16")):
         state = pwc_trainer.create_pwc_state(0, trainer.tf_adam(1e-4), device="cuda")
         step = pwc_trainer.make_pwc_train_step(policy=policy)
         reset_launches(kernel)
-        state, m = step(state, batch)
+        with recorded_launches(kernel) as seen:
+            state, m = step(state, batch)
         torch.cuda.synchronize()
         require_launches(kernel, f"pwc train step ({name})", want=5, variant=variant)
         launches = kernel.LAUNCHES
+        errs[name] = check_recorded(kernel, seen, level_shapes, f"pwc train step ({name})", seed=6)
         losses = [float(m["loss"])]
         for _ in range(5):
             state, m = step(state, batch)
@@ -820,7 +865,8 @@ def phase_pwc_train(tmp):
                                  f"{len(events)} times in 3 steps")
         inside = sum(by_level.values())
         busy, kernels = device_busy(lambda: step(state, batch))
-        log(f"[pwc_train] {name}: 5 {variant} launches a step; loss {losses[0]:.4f} -> "
+        log(f"[pwc_train] {name}: 5 {variant} launches a step, the kernel against the plain version "
+            f"at their shapes {[list(s) for s in level_shapes]}: max |diff| {errs[name]:.3g}; loss {losses[0]:.4f} -> "
             f"{losses[-1]:.4f} over 6 steps on one batch; eval EPE {epe:.4f}; {ms:.2f} ms a step "
             f"(batch 8 of {h}x{w}, {8e3 / ms:.1f} samples/s), peak {peak:.2f} GiB, card busy "
             f"{busy:.2f} ms in {kernels:.0f} kernels; inside the "
@@ -829,14 +875,15 @@ def phase_pwc_train(tmp):
 
     # that backward alone at the five level shapes of this batch
     g = torch.Generator(device="cuda").manual_seed(5)
-    alone = {}
+    backward = {}
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        alone[name] = {lvl: cv_backward_ms(kernel, (8, h >> lvl, w >> lvl, c), dtype, g)
-                       for lvl, c in LEVEL_CHANNELS.items()}
+        wall, busy, kernels = cv_backward(kernel, level_shapes, dtype, g)
+        backward[name] = {"ms": sum(wall.values()), "busy_ms": busy}
         log(f"[pwc_train] cost-volume backward alone (plain version's autograd), {name}, "
             f"[8, {h}>>l, {w}>>l, C]: "
-            + ", ".join(f"level {lvl}: {ms:.3f} ms" for lvl, ms in alone[name].items())
-            + f"; sum {sum(alone[name].values()):.3f} ms")
+            + ", ".join(f"level {lvl}: {ms:.3f} ms" for lvl, ms in zip(LEVEL_CHANNELS, wall.values()))
+            + f"; sum {backward[name]['ms']:.3f} ms as its caller waits, card busy {busy:.3f} ms "
+              f"in {kernels:.0f} kernels")
 
     # the step-driven loop and the per-sample report, as a user calls them
     ckpt, preds = os.path.join(tmp, "pwc_ckpt"), os.path.join(tmp, "pwc_preds")
@@ -860,7 +907,7 @@ def phase_pwc_train(tmp):
     log(f"[pwc_train] pwc_fit: 2 steps + validation + flow panel + checkpoint in {seconds:.2f} s, "
         f"20 mma_bf16 launches; pwc_eval_report: {len(rows)} rows, EPE {avg_epe:.4f}, "
         f"{1e3 * avg_dur:.2f} ms a sample")
-    return launches, {k: sum(v.values()) for k, v in alone.items()}
+    return launches, backward, max(errs.values())
 
 
 def phase_joint(fisr, pwc):
@@ -880,7 +927,10 @@ def phase_joint(fisr, pwc):
                     p.copy_(s)
                 model.zero_grad(set_to_none=True)
 
-    launches = None
+    # both flow calls of a step take 2B rows of the upscaled frame's pyramid
+    side = TRAIN_PATCH * FLOW_UPSCALE
+    level_shapes = 2 * [(4, side >> lvl, side >> lvl, c) for lvl, c in LEVEL_CHANNELS.items()]
+    launches, max_err = None, 0.0
     try:
         for name, train_pwc in (("both", True), ("frozen", False)):
             restore()  # each case starts from the weights this phase was given
@@ -889,10 +939,12 @@ def phase_joint(fisr, pwc):
             step = joint.make_joint_train_step(policy=F32, upscale=FLOW_UPSCALE)
             before = [snapshot(fisr), snapshot(pwc)]
             reset_launches(kernel)
-            state, m = step(state, batch)
+            with recorded_launches(kernel) as seen:
+                state, m = step(state, batch)
             torch.cuda.synchronize()
             require_launches(kernel, f"joint step ({name})", want=10, variant="fma_f32")
             launches = kernel.LAUNCHES
+            err = check_recorded(kernel, seen, level_shapes, f"joint step ({name})", seed=7)
             if not moved(before[0], fisr) or moved(before[1], pwc) != train_pwc:
                 raise AssertionError(f"joint step ({name}): FISRnet moved {moved(before[0], fisr)}, "
                                      f"PWC-Net moved {moved(before[1], pwc)}")
@@ -908,13 +960,17 @@ def phase_joint(fisr, pwc):
             peak = torch.cuda.max_memory_allocated() / 2**30
             step16 = joint.make_joint_train_step(policy=BF16, upscale=FLOW_UPSCALE)
             reset_launches(kernel)
-            step16(state, batch)
+            with recorded_launches(kernel) as seen:
+                step16(state, batch)
             torch.cuda.synchronize()
             require_launches(kernel, f"joint step ({name}, bf16)", want=10)
+            err16 = check_recorded(kernel, seen, level_shapes, f"joint step ({name}, bf16)", seed=8)
+            max_err = max(max_err, err, err16)
             ms16 = wall_ms(lambda: step16(state, batch))
             busy, kernels = device_busy(lambda: step(state, batch))
             log(f"[joint] {name}: 10 cost-volume launches a step (2 flow calls x 5 levels; fma_f32 "
-                f"in f32, mma_bf16 in bf16); B=2 windows of {TRAIN_PATCH}x{TRAIN_PATCH}, upscale "
+                f"in f32, mma_bf16 in bf16), the kernel against the plain version at their shapes "
+                f"[4, {side}>>l, {side}>>l, C]: max |diff| {err:.3g} (f32), {err16:.3g} (bf16); B=2 windows of {TRAIN_PATCH}x{TRAIN_PATCH}, upscale "
                 f"{FLOW_UPSCALE}: joint_loss {losses[0]:.6f} -> {losses[-1]:.6f} over 6 steps on one "
                 f"batch, PSNR {float(m['joint_PSNR']):.3f} dB; f32 {ms:.2f} ms a step, bf16 "
                 f"{ms16:.2f} ms, peak {peak:.2f} GiB, card busy {busy:.2f} ms in {kernels:.0f} "
@@ -923,7 +979,7 @@ def phase_joint(fisr, pwc):
             del state
     finally:
         restore()
-    return launches
+    return launches, max_err
 
 
 def main() -> int:
@@ -936,22 +992,32 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
-    phase_build()
-    max_err, levels = phase_kernel()
+    t_start = time.perf_counter()
+
+    def timed(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        torch.cuda.synchronize()
+        log(f"[time] {phase.__name__}: {time.perf_counter() - t0:.1f} s "
+            f"({time.perf_counter() - t_start:.1f} s since the start)")
+        return out
+
+    timed(phase_build)
+    max_err, levels = timed(phase_kernel)
     from fisr_tpu_torch.convert import params
 
     # full-width deterministic weights (the TF-oracle generator), made once
     fisr = params.deterministic_fisrnet(ch=64, device="cuda")
     pwc = params.deterministic_pwcnet(device="cuda")
-    phase_small(fisr, pwc)
+    timed(phase_small, fisr, pwc)
     with tempfile.TemporaryDirectory() as tmp:
-        launches, folder = phase_full(fisr, pwc, tmp)
-        phase_tiled(fisr, pwc, synthetic_frames(4, *WINDOW))
-        launches_staged = phase_staged(fisr, pwc, folder, tmp)
-        phase_eval(fisr, tmp)
-        phase_train(tmp)
-        launches_pwc_train, backward = phase_pwc_train(tmp)
-    launches_joint = phase_joint(fisr, pwc)
+        launches, folder = timed(phase_full, fisr, pwc, tmp)
+        timed(phase_tiled, fisr, pwc, synthetic_frames(4, *WINDOW))
+        launches_staged = timed(phase_staged, fisr, pwc, folder, tmp)
+        timed(phase_eval, fisr, tmp)
+        timed(phase_train, tmp)
+        launches_pwc_train, backward, err_pwc_train = timed(phase_pwc_train, tmp)
+    launches_joint, err_joint = timed(phase_joint, fisr, pwc)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     log(smi.stdout.strip().splitlines()[0])
@@ -962,7 +1028,9 @@ def main() -> int:
         "launches": launches, "launches_staged": launches_staged,
         # per training step: make_pwc_train_step, make_joint_train_step
         "launches_train": {"pwc_train_step": launches_pwc_train, "joint_step": launches_joint},
-        "max_abs_err": max_err,
+        # over the inference window's level shapes, the ragged shapes and the
+        # shapes that the pwc_train and joint steps launched, f32 and bf16
+        "max_abs_err": max(max_err, err_pwc_train, err_joint),
         # one frame pair's five levels (levels 6..2) in bf16, the main path's dtype
         "ms": sum(r["bf16_ms"] for r in levels),
         "graph_ms": sum(r["bf16_graph_ms"] for r in levels),
@@ -971,8 +1039,11 @@ def main() -> int:
         "bound_by": "bytes" if all(r["bf16_bound_by"] == "bytes" for r in levels) else "operations",
         "library_ms": None,
         # the backward (autograd of the plain version) at the five level
-        # shapes of the pwc_train batch, [8, 256>>l, 448>>l, C]
-        "backward_ms": backward["bf16"], "backward_f32_ms": backward["f32"],
+        # shapes of the pwc_train batch, [8, 256>>l, 448>>l, C]: as its caller
+        # waits for it (the host's launches) and the card's busy time
+        "backward_ms": backward["bf16"]["ms"], "backward_f32_ms": backward["f32"]["ms"],
+        "backward_busy_ms": backward["bf16"]["busy_ms"],
+        "backward_f32_busy_ms": backward["f32"]["busy_ms"],
     }]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -14,11 +14,12 @@ and defaults (the reference's own main.py:23-106):
                    artifacts), on the device with --fused (--fisr_grid
                    full|auto|tuned|GH,GW)
 
-FISRnet weights come from --fisr_params_npz (an .npz of '/'-joined JAX key
-paths -> arrays), else from the experiment's newest checkpoint
-(<checkpoint_dir>/FISRnet_exp<exp_num>, what the train phase writes), else
-from the TF-oracle generator at full width (--deterministic_weights), else a
-fresh init, said aloud (the JAX CLI's order, main.py `_load_params`). PWC-Net
+FISRnet weights named by a flag win: --fisr_params_npz (an .npz of '/'-joined
+JAX key paths -> arrays), else the TF-oracle generator at full width
+(--deterministic_weights). Without either they come from the experiment's
+newest checkpoint (<checkpoint_dir>/FISRnet_exp<exp_num>, what the train
+phase writes), else a fresh init, said aloud (the JAX CLI's `_load_params`).
+The test that ends the train phase scores the checkpoint it just wrote. PWC-Net
 weights come from --pwc_params_npz or the generator; without either the run
 stops (its checkpoint loader is ROADMAP.md, Queue 1 item 6). The JAX CLI's
 --jax_cache_dir has no counterpart (nothing is compiled ahead of a run).
@@ -150,6 +151,8 @@ def _model(args, device, what):
         "pwc": (params.pwcnet_from_jax, params.deterministic_pwcnet)}[what]
     if npz:
         return from_jax(params.tree_from_npz(npz), device=device)
+    if args.deterministic_weights:
+        return deterministic(device=device)
     ckpt = os.path.join(args.checkpoint_dir, _model_dir(args))
     if what == "fisr" and os.path.isdir(ckpt):
         from fisr_tpu_torch.train.checkpoint import CheckpointManager
@@ -158,8 +161,6 @@ def _model(args, device, what):
         if mgr.latest_step() is not None:
             print(f" [*] restored checkpoint step {mgr.latest_step()}")
             return from_jax(mgr.restore()["params"], device=device)
-    if args.deterministic_weights:
-        return deterministic(device=device)
     if what == "fisr":
         from fisr_tpu_torch.models.fisrnet import FISRnet
 
@@ -245,6 +246,8 @@ def main(argv=None):
     if args.phase == "train":
         run_train(args, device)
         print("[*] Training finished! Testing starts")
+        # the trained weights, whatever weights the flags name
+        args.fisr_params_npz, args.deterministic_weights = None, False
         return run_test(args, device)
     # the runners, the pipeline's stages and the metrics turn autograd off themselves
     return run_test(args, device) if args.phase == "test" else run_video(args, device)

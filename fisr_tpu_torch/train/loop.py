@@ -29,9 +29,9 @@ from fisr_tpu_torch.ops.seq import groups_to_overlap, split_seq_dim
 from fisr_tpu_torch.train import schedule as sched
 from fisr_tpu_torch.train.checkpoint import CheckpointManager, derive_epoch_batch
 from fisr_tpu_torch.train.losses import LossWeights
-from fisr_tpu_torch.train.trainer import (TrainState, adam_with_schedule, batch_to_device,
-                                          create_state, device_of, forward_windows,
-                                          make_train_step, make_val_step)
+from fisr_tpu_torch.train.trainer import (TrainState, batch_to_device, create_state,
+                                          device_of, forward_windows, make_train_step,
+                                          make_val_step, tf_adam)
 from fisr_tpu_torch.utils.tb_writer import TBLogger
 from fisr_tpu_torch.utils.watchdog import Heartbeat
 
@@ -118,7 +118,7 @@ def fit(
     schedule_fn = build_schedule(lr_type, init_lr, iters, epochs,
                                  lr_stair_decay_points, lr_decreasing_factor,
                                  lr_linear_decay_point)
-    state = create_state(seed, adam_with_schedule(schedule_fn), device=dev)
+    state = create_state(seed, tf_adam(schedule_fn), device=dev)
     step_fn = make_train_step(loss_weights, policy)
     val_fn = make_val_step(policy)
 

@@ -35,7 +35,7 @@ from fisr_tpu_torch.train.losses import LossWeights, l2_loss, temporal_loss
 Batch = Dict[str, torch.Tensor]
 LearningRate = Union[float, Callable[[int], float]]
 
-__all__ = ["TFAdam", "TrainState", "tf_adam", "adam_with_schedule", "create_state",
+__all__ = ["TFAdam", "TrainState", "tf_adam", "create_state",
            "make_train_step", "make_val_step", "forward_windows", "batch_to_device",
            "device_of"]
 
@@ -109,11 +109,6 @@ def tf_adam(learning_rate: LearningRate, b1: float = 0.9, b2: float = 0.999,
     return functools.partial(TFAdam, learning_rate=learning_rate, b1=b1, b2=b2, eps=eps)
 
 
-def adam_with_schedule(schedule_fn: LearningRate) -> Callable[..., TFAdam]:
-    """tf.train.AdamOptimizer parity (defaults b1=.9, b2=.999, eps=1e-8)."""
-    return tf_adam(schedule_fn)
-
-
 @dataclasses.dataclass
 class TrainState:
     """A module, the optimizer over its parameters, and the global step."""
@@ -126,7 +121,7 @@ class TrainState:
 def create_state(seed: int, optimizer: Callable[..., TFAdam], in_ch: int = fisrnet.IN_CH,
                  ch: int = fisrnet.BASE_CH, device="cuda") -> TrainState:
     """ch: model width; 64 is the reference model, narrow widths serve tests.
-    `optimizer` is a factory over parameters (tf_adam, adam_with_schedule)."""
+    `optimizer` is a factory over parameters (tf_adam)."""
     model = fisrnet.FISRnet(in_ch=in_ch, ch=ch, seed=seed, device=device)
     return TrainState(model, optimizer(model.parameters()), 0)
 

@@ -165,7 +165,7 @@ def test_pwc_eval_step_matches_jax_and_step_lowers_loss():
     batch = _batch(3)
     want = jpwc_trainer.make_pwc_eval_step(JCFG)(tree, {k: jnp.asarray(v) for k, v in batch.items()})
     cfg = pwcnet.PWCNetConfig(**SMALL)
-    state = pwc_trainer.create_pwc_state(0, trainer.adam_with_schedule(schedule.no_decay(LR)), cfg,
+    state = pwc_trainer.create_pwc_state(0, trainer.tf_adam(schedule.no_decay(LR)), cfg,
                                          device="cpu")
     params._load_tree_(state.model, _np_tree(tree))
     got = pwc_trainer.make_pwc_eval_step()(state.model, batch)

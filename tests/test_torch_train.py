@@ -220,7 +220,7 @@ def test_three_train_steps_match_jax(small):
     jstep = jtrainer.make_train_step(jopt, donate=False)
     model = params.fisrnet_from_jax(_np_tree(tree), device="cpu")
     state = trainer.TrainState(
-        model, trainer.adam_with_schedule(schedule.stair_decay(LR, [2], 0.5))(model.parameters()))
+        model, trainer.tf_adam(schedule.stair_decay(LR, [2], 0.5))(model.parameters()))
     step = trainer.make_train_step()
     for n in (1, 2, 3):
         jstate, want = jstep(jstate, _jbatch(batch))
@@ -251,7 +251,7 @@ def test_jax_train_state_carries_across(small):
                 "opt_state": {"count": np.asarray(adam.count), "mu": _np_tree(adam.mu),
                               "nu": _np_tree(adam.nu)},
                 "step": np.asarray(jstate.step)}
-    state = trainer.create_state(3, trainer.adam_with_schedule(schedule.no_decay(LR)), ch=8,
+    state = trainer.create_state(3, trainer.tf_adam(schedule.no_decay(LR)), ch=8,
                                  device="cpu")
     state.step = params.load_train_state_(state.model, state.optimizer, as_numpy)
     assert state.step == 2 and state.optimizer.count == 2
@@ -283,7 +283,7 @@ def test_val_step_matches_jax(small):
 
 def test_train_step_lowers_loss_on_one_batch(small):
     store, _ = small
-    state = trainer.create_state(0, trainer.adam_with_schedule(schedule.no_decay(2e-4)), ch=8,
+    state = trainer.create_state(0, trainer.tf_adam(schedule.no_decay(2e-4)), ch=8,
                                  device="cpu")
     step = trainer.make_train_step()
     batch = next(store.batches(2, epoch_seed=0))
@@ -503,7 +503,7 @@ def test_fit_resumes_mid_epoch(tmp_path, capsys):
 
     # the saved tree restores bit for bit
     saved = checkpoint.CheckpointManager(ckpt).restore()
-    fresh = trainer.create_state(9, trainer.adam_with_schedule(1e-4), device="cpu")
+    fresh = trainer.create_state(9, trainer.tf_adam(1e-4), device="cpu")
     assert params.load_train_state_(fresh.model, fresh.optimizer, saved) == iters
     for a, b in zip(fresh.model.parameters(), state.model.parameters()):
         assert torch.equal(a, b)
@@ -592,7 +592,7 @@ def test_three_optimizer_steps_match_tf_oracle(oracle_model):
     for step, lr_ref in enumerate(man["lr_steps"]):
         assert abs(sched(step) - lr_ref) < 1e-9
     model = params.deterministic_fisrnet(device="cpu")
-    state = trainer.TrainState(model, trainer.adam_with_schedule(sched)(model.parameters()))
+    state = trainer.TrainState(model, trainer.tf_adam(sched)(model.parameters()))
     step_fn = trainer.make_train_step()
     batch = {k: zl[k] for k in BATCH_KEYS}
     name_map = params.fisrnet_name_map()
@@ -714,3 +714,7 @@ def test_cli_train_phase_end_to_end(tmp_path, capsys):
     assert " [!] no checkpoint found: using fresh init" in capsys.readouterr().out
     assert fresh.n_frames == 7 and fresh.psnr_vfi_sr != res.psnr_vfi_sr
     assert not os.path.exists(tmp_path / "ckpt" / "FISRnet_exp4")
+    # weights named by a flag win over the experiment's checkpoint
+    named = main(["--phase", "test", "--deterministic_weights"] + args)
+    assert "restored checkpoint" not in capsys.readouterr().out
+    assert named.n_frames == 7 and named.psnr_vfi_sr != res.psnr_vfi_sr

@@ -60,7 +60,7 @@ def test_train_step_on_card_matches_cpu(card):
     runs = {}
     for dev in ("cpu", card):
         model = params.deterministic_fisrnet(ch=8, device=dev)
-        state = trainer.TrainState(model, trainer.adam_with_schedule(LR)(model.parameters()))
+        state = trainer.TrainState(model, trainer.tf_adam(LR)(model.parameters()))
         step = trainer.make_train_step()
         for _ in range(3):
             state, m = step(state, batch)
