@@ -6,11 +6,14 @@
 Phases (any failure raises and exits non-zero):
 1. build  - nvcc builds every kernel of the fused video path from
    fisr_tpu_torch/csrc/ (one nvcc per source, all started together); ptxas
-   must report no spills for the bf16 tensor-core kernel.
+   must report no spills for any of its kernels (bf16 mma.sync, f32 FMA,
+   backward).
 2. kernel - the cost-volume kernels (bf16: mma.sync, f32: FMA) against the
    plain PyTorch version on the card at the five PWC-Net level shapes of a
    1024x1920 window (B=2, d=4), at ragged shapes (d=2 and 4, odd W and H,
-   C=3, 20, 196), and the gradient. At the level shapes the kernel is timed
+   C=3, 20, 196), and the gradient; the backward kernel against the plain
+   backward (ops/cost_volume.cost_volume_backward) at the ragged shapes, f32
+   and bf16. At the level shapes the kernel is timed
    with CUDA events twice: call by call through the wrapper (`ms`, which at
    the small levels is the host's time to launch) and replaying a CUDA graph
    of launches (`graph_ms`, the card's time alone); the plain version call by
@@ -51,28 +54,30 @@ Phases (any failure raises and exits non-zero):
 9. pwc_train - train/pwc_trainer.make_pwc_train_step at full width (PWC-Net
    lg-6-2) on FlowDataset.synthetic_textured, batch 8 of 256x448, multiscale
    loss: 5 cost-volume launches a step, fma_f32 under F32 and mma_bf16 under
-   BF16, and the kernel against the plain version at exactly the shapes and
-   dtypes those launches had ([8, 256>>l, 448>>l, C], down to 4x7); in f32
-   the parameter gradients through the kernel against those
-   through the plain version (1e-5 of the largest gradient); the loss must
-   fall over repeated steps on one batch; make_pwc_eval_step must give a
-   finite EPE. Prints ms per step and, of it, the time inside the cost
-   volume's backward (the plain version's autograd) per level, and times
-   that backward alone at the five level shapes, both as its caller waits for
-   it and as the card's busy time. Then pwc_fit for 2 steps
-   with a validation round, the flow panel and a checkpoint (20 launches, all
-   mma_bf16), and pwc_eval_report on the result (finite rows, .flo and PNG
-   predictions).
+   BF16, and 5 backward launches (bwd_f32 / bwd_bf16); each kernel against
+   its plain version at exactly the shapes and dtypes those launches had
+   ([8, 256>>l, 448>>l, C], down to 4x7); in f32 the parameter gradients
+   through the kernels against those through the plain version and its
+   autograd (1e-5 of the largest gradient); the loss must fall over repeated
+   steps on one batch; make_pwc_eval_step must give a finite EPE. Prints ms
+   per step and, of it, the time inside the cost volume's backward per level,
+   and times the backward alone at the five level shapes: the kernel's
+   graph_ms, card busy time and its caller's wait, against the card busy
+   time, kernel count and caller's wait of the plain version's autograd (the
+   baseline). Then pwc_fit for 2 steps with a validation round, the flow
+   panel and a checkpoint (20 launches, all mma_bf16; 10 bwd_bf16), and
+   pwc_eval_report on the result (finite rows, .flo and PNG predictions).
 10. joint - train/joint.make_joint_train_step on
    data/synth.synthetic_video_windows(h=96, w=96), B=2, upscale=2: with both
-   optimizers (10 launches a step = 2 flow calls x 5 levels; both models
-   move; joint_loss falls on one batch), then with the flow model frozen (10
-   launches, only FISRnet moves); the kernel against the plain version at the
-   shapes those launches had ([4, 192>>l, 192>>l, C], down to 3x3), f32 and
-   bf16. Prints ms per step and peak memory.
+   optimizers (10 launches a step = 2 flow calls x 5 levels, and 10 backward
+   launches; both models move; joint_loss falls on one batch), then with the
+   flow model frozen (10 launches, no backward launch, only FISRnet moves);
+   the kernels against their plain versions at the shapes those launches had
+   ([4, 192>>l, 192>>l, C], down to 3x3), f32 and bf16. Prints ms per step
+   and peak memory.
 
-Prints the card's name and power limit, a {"kernels": [...]} line, and as
-its last line {"ok": true, "device": {...}}. Without a CUDA device it exits
+Prints the card's name and power limit, a {"kernels": [...]} line (the
+bf16 and f32 forward kernels and the backward kernel), and as its last line {"ok": true, "device": {...}}. Without a CUDA device it exits
 with 1 and prints no result.
 """
 
@@ -156,6 +161,18 @@ def cv_bound_ms(shape, dtype):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def cv_bwd_bound_ms(shape, dtype):
+    """Least time for one backward: g, c1 and c2 read once, dc1 and dc2
+    written once, B*H*W*(81 + 4C) values; or 4*81*C flops a pixel."""
+    b, h, w, c = shape
+    item = torch.tensor([], dtype=dtype).element_size()
+    nn = (2 * D + 1) ** 2
+    nbytes = b * h * w * (nn + 4 * c) * item
+    flops = 4 * nn * c * b * h * w
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def check_cost_volume(kernel, plain, shape, d, dtype, g):
     """The kernel against the plain version on random card tensors of `shape`:
     (max |diff|, c1, c2), or raises. f32 within 1e-5, bf16 within `bf16_ok`."""
@@ -170,34 +187,67 @@ def check_cost_volume(kernel, plain, shape, d, dtype, g):
     return err, a, b
 
 
+def check_backward(kernel, shape, d, dtype, g):
+    """The backward kernel against the plain backward (cost_volume_backward)
+    on random card tensors of `shape`: max |diff| over both gradients, or
+    raises. f32 within 1e-5, bf16 within `bf16_ok`."""
+    from fisr_tpu_torch.ops.cost_volume import cost_volume_backward
+
+    a = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    b = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    grad = torch.randn(tuple(shape[:3]) + ((2 * d + 1) ** 2,), device="cuda",
+                       generator=g).to(dtype)
+    got = kernel.cost_volume_backward_cuda(a, b, grad, d)
+    want = cost_volume_backward(a, b, grad, d)
+    err = 0.0
+    for x, y in zip(got, want):
+        x, y = x.float(), y.float()
+        err = max(err, (x - y).abs().max().item())
+        ok = (torch.allclose(x, y, rtol=1e-5, atol=1e-5) if dtype == torch.float32
+              else bf16_ok(x, y))
+        if not ok:
+            raise AssertionError(f"cost-volume backward {tuple(shape)} d={d} {dtype}: "
+                                 f"max |diff| {err}")
+    return err
+
+
 @contextlib.contextmanager
 def recorded_launches(kernel):
     """Lists (shape, search range, dtype) of every cost-volume launch made
-    inside the block, in order."""
-    seen, orig = [], kernel._launch
+    inside the block, in order: forward launches, and backward launches."""
+    seen, seen_bwd = [], []
+    orig, orig_bwd = kernel._launch, kernel._launch_backward
 
     def launch(c1, c2, d):
         seen.append((tuple(c1.shape), d, c1.dtype))
         return orig(c1, c2, d)
 
-    kernel._launch = launch
+    def launch_backward(c1, c2, g, d, *need):
+        seen_bwd.append((tuple(c1.shape), d, c1.dtype))
+        return orig_bwd(c1, c2, g, d, *need)
+
+    kernel._launch, kernel._launch_backward = launch, launch_backward
     try:
-        yield seen
+        yield seen, seen_bwd
     finally:
-        kernel._launch = orig
+        kernel._launch, kernel._launch_backward = orig, orig_bwd
 
 
-def check_recorded(kernel, seen, want_shapes, what, seed):
+def check_recorded(kernel, seen, want_shapes, what, seed, backward=False):
     """A training path's launches, as `recorded_launches` listed them, must be
-    at `want_shapes`; the kernel is then held against the plain version at
-    each of those shapes in the dtype the path gave it. Returns the largest
-    |diff|. The comparisons' own launches come after the path's were counted."""
+    at `want_shapes`; the kernel (the backward kernel with `backward`) is then
+    held against its plain version at each of those shapes in the dtype the
+    path gave it. Returns the largest |diff|. The comparisons' own launches
+    come after the path's were counted."""
     from fisr_tpu_torch.ops.cost_volume import cost_volume as plain
 
     if sorted(s for s, _, _ in seen) != sorted(want_shapes):
-        raise AssertionError(f"{what} launched the cost volume at {[s for s, _, _ in seen]}, "
-                             f"want {want_shapes}")
+        raise AssertionError(f"{what} launched the cost-volume {'backward ' * backward}at "
+                             f"{[s for s, _, _ in seen]}, want {want_shapes}")
     g = torch.Generator(device="cuda").manual_seed(seed)
+    if backward:
+        return max(check_backward(kernel, shape, d, dtype, g)
+                   for shape, d, dtype in dict.fromkeys(seen))
     return max(check_cost_volume(kernel, plain, shape, d, dtype, g)[0]
                for shape, d, dtype in dict.fromkeys(seen))
 
@@ -211,7 +261,7 @@ def phase_build():
     for name, info in build.BUILD_LOG.items():
         for entry, spills, regs in build.ptxas_report(info["ptxas"]):
             log(f"[build] {name}: {entry}: {spills}; {regs}")
-            if "mma_bf16" in entry and "0 bytes spill stores, 0 bytes spill loads" not in spills:
+            if "0 bytes spill stores, 0 bytes spill loads" not in spills:
                 raise AssertionError(f"{entry} spills registers: {spills}")
 
 
@@ -243,14 +293,21 @@ def phase_kernel():
     for dtype in (torch.float32, torch.bfloat16):
         for shape, d in ragged:
             max_err = max(max_err, check_cost_volume(kernel, plain, shape, d, dtype, g)[0])
+    # the backward kernel against the plain backward at the ragged shapes
+    bwd_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, d in ragged:
+            bwd_err = max(bwd_err, check_backward(kernel, shape, d, dtype, g))
     a = torch.randn((1, 8, 12, 4), device=dev, generator=g, requires_grad=True)
     b = torch.randn((1, 8, 12, 4), device=dev, generator=g, requires_grad=True)
     gk = torch.autograd.grad((kernel.cost_volume_cuda(a, b, 2) ** 2).sum(), (a, b))
     gp = torch.autograd.grad((plain(a, b, 2) ** 2).sum(), (a, b))
     for x, y in zip(gk, gp):
         torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
-    log(f"[kernel] all shapes and the gradient agree; max |diff| {max_err}")
-    return max_err, levels
+    log(f"[kernel] all shapes and the gradient agree; max |diff| {max_err}; the backward "
+        f"kernel against the plain backward at the ragged shapes, f32 and bf16: max |diff| "
+        f"{bwd_err}")
+    return max_err, levels, bwd_err
 
 
 def phase_small(fisr, pwc):
@@ -304,6 +361,16 @@ def synthetic_frames(n, h, w, seed=0):
 def reset_launches(kernel):
     kernel.LAUNCHES = 0
     kernel.LAUNCHES_BY_VARIANT.update(mma_bf16=0, fma_f32=0)
+    kernel.BACKWARD_LAUNCHES = 0
+    kernel.BACKWARD_LAUNCHES_BY_VARIANT.update(bwd_f32=0, bwd_bf16=0)
+
+
+def require_backward(kernel, what, want, variant):
+    by_variant = {v: (want if v == variant else 0) for v in kernel.BACKWARD_LAUNCHES_BY_VARIANT}
+    if kernel.BACKWARD_LAUNCHES != want or kernel.BACKWARD_LAUNCHES_BY_VARIANT != by_variant:
+        raise AssertionError(f"{what} made {kernel.BACKWARD_LAUNCHES} cost-volume backward "
+                             f"launches ({kernel.BACKWARD_LAUNCHES_BY_VARIANT}), want {want}, "
+                             f"all {variant}")
 
 
 def require_launches(kernel, what, want=15, variant="mma_bf16"):
@@ -759,22 +826,44 @@ def phase_train(tmp):
 
 
 def cv_backward(kernel, shapes, dtype, g):
-    """The cost volume's backward alone (the plain version's autograd, as
-    _CostVolume.backward runs it) on random tensors of each of `shapes`:
-    ({shape: ms a call as its caller waits for it, CUDA events}, ms the card
-    is busy over one backward at every shape, the CUDA kernels that takes).
-    The backward is some thousand small kernels, so the first is the host's
-    launch time and varies with the host's load; the second is the card's."""
-    calls, wall = [], {}
-    for shape in shapes:
-        a = torch.randn(shape, device="cuda", generator=g).to(dtype).requires_grad_(True)
-        b = torch.randn(shape, device="cuda", generator=g).to(dtype).requires_grad_(True)
-        out = kernel.cost_volume_cuda(a, b, D)
-        grad = torch.randn(out.shape, device="cuda", generator=g).to(dtype)
-        calls.append(functools.partial(torch.autograd.grad, out, (a, b), grad, retain_graph=True))
-        wall[shape] = time_ms(calls[-1], reps=5, warmup=1)
-    busy, kernels = device_busy(lambda: [call() for call in calls])
-    return wall, busy, kernels
+    """The cost volume's backward alone at each of `shapes`, on random
+    tensors: the backward kernel (what _CostVolume.backward launches) and the
+    plain version's autograd with the plain forward recomputed inside it (what
+    _CostVolume.backward ran before the kernel: the baseline).
+    For each: ms as its caller waits for one backward at every shape (CUDA
+    events around calls through autograd: the host's launches are in it), and
+    the card's busy ms and CUDA kernels over the same (torch.profiler); for
+    the kernel also `graph_ms`, the card's time from a CUDA-graph replay of
+    the wrapper's launches."""
+    from fisr_tpu_torch.ops.cost_volume import cost_volume as plain
+
+    def plain_backward(a, b, grad):
+        a, b = a.detach().requires_grad_(True), b.detach().requires_grad_(True)
+        return torch.autograd.grad(plain(a, b, D), (a, b), grad)
+
+    out = {}
+    for impl in ("kernel", "plain"):
+        calls, graphs, wall = [], [], 0.0
+        for shape in shapes:
+            a = torch.randn(shape, device="cuda", generator=g).to(dtype).requires_grad_(True)
+            b = torch.randn(shape, device="cuda", generator=g).to(dtype).requires_grad_(True)
+            grad = torch.randn(tuple(shape[:3]) + ((2 * D + 1) ** 2,), device="cuda",
+                               generator=g).to(dtype)
+            if impl == "kernel":
+                cv = kernel.cost_volume_cuda(a, b, D)
+                calls.append(functools.partial(torch.autograd.grad, cv, (a, b), grad,
+                                               retain_graph=True))
+            else:
+                calls.append(functools.partial(plain_backward, a, b, grad))
+            wall += time_ms(calls[-1], reps=5, warmup=1)
+            graphs.append((a.detach(), b.detach(), grad))
+        busy, kernels = device_busy(lambda: [call() for call in calls])
+        out[impl] = {"ms": wall, "busy_ms": busy, "kernels": kernels}
+        if impl == "kernel":
+            out[impl]["graph_ms"] = sum(
+                graph_time_ms(lambda: kernel.cost_volume_backward_cuda(a, b, grad, D))
+                for a, b, grad in graphs)
+    return out
 
 
 def phase_pwc_train(tmp):
@@ -804,26 +893,32 @@ def phase_pwc_train(tmp):
         torch.cuda.synchronize()
         require_launches(kernel, f"PWC-Net forward + backward ({impl})",
                          want=5 if impl == "kernel" else 0, variant="fma_f32")
+        require_backward(kernel, f"PWC-Net forward + backward ({impl})",
+                         want=5 if impl == "kernel" else 0, variant="bwd_f32")
         grads[impl] = [p.grad.clone() for p in model.parameters()]
     top = max(float(g.abs().max()) for g in grads["plain"])
     worst = max(float((a - b).abs().max()) for a, b in zip(grads["kernel"], grads["plain"]))
     if not worst <= GRAD_TOL * top:
         raise AssertionError(f"parameter gradients, kernel vs plain: {worst} against largest {top}")
-    log(f"[pwc_train] f32 parameter gradients, kernel forward vs plain forward: max |diff| "
+    log(f"[pwc_train] f32 parameter gradients, the kernels (forward and backward) vs the plain "
+        f"version and its autograd: max |diff| "
         f"{worst:.3g} = {worst / top:.3g} of the largest gradient (bound {GRAD_TOL})")
 
     level_shapes = [(8, h >> lvl, w >> lvl, c) for lvl, c in LEVEL_CHANNELS.items()]
-    errs = {}
+    errs, bwd_errs, steps = {}, {}, {}
     for name, policy, variant in (("f32", F32, "fma_f32"), ("bf16", BF16, "mma_bf16")):
         state = pwc_trainer.create_pwc_state(0, trainer.tf_adam(1e-4), device="cuda")
         step = pwc_trainer.make_pwc_train_step(policy=policy)
         reset_launches(kernel)
-        with recorded_launches(kernel) as seen:
+        with recorded_launches(kernel) as (seen, seen_bwd):
             state, m = step(state, batch)
         torch.cuda.synchronize()
         require_launches(kernel, f"pwc train step ({name})", want=5, variant=variant)
-        launches = kernel.LAUNCHES
+        require_backward(kernel, f"pwc train step ({name})", want=5, variant=f"bwd_{name}")
+        launches, bwd_launches = kernel.LAUNCHES, kernel.BACKWARD_LAUNCHES
         errs[name] = check_recorded(kernel, seen, level_shapes, f"pwc train step ({name})", seed=6)
+        bwd_errs[name] = check_recorded(kernel, seen_bwd, level_shapes,
+                                        f"pwc train step ({name})", seed=9, backward=True)
         losses = [float(m["loss"])]
         for _ in range(5):
             state, m = step(state, batch)
@@ -865,8 +960,12 @@ def phase_pwc_train(tmp):
                                  f"{len(events)} times in 3 steps")
         inside = sum(by_level.values())
         busy, kernels = device_busy(lambda: step(state, batch))
-        log(f"[pwc_train] {name}: 5 {variant} launches a step, the kernel against the plain version "
-            f"at their shapes {[list(s) for s in level_shapes]}: max |diff| {errs[name]:.3g}; loss {losses[0]:.4f} -> "
+        steps[name] = {"ms": ms, "busy_ms": busy, "kernels": kernels, "peak_gib": peak,
+                       "inside_backward_ms": inside, "launches": launches,
+                       "bwd_launches": bwd_launches}
+        log(f"[pwc_train] {name}: 5 {variant} and 5 bwd_{name} launches a step, the kernels "
+            f"against the plain versions at their shapes {[list(s) for s in level_shapes]}: max "
+            f"|diff| {errs[name]:.3g} forward, {bwd_errs[name]:.3g} backward; loss {losses[0]:.4f} -> "
             f"{losses[-1]:.4f} over 6 steps on one batch; eval EPE {epe:.4f}; {ms:.2f} ms a step "
             f"(batch 8 of {h}x{w}, {8e3 / ms:.1f} samples/s), peak {peak:.2f} GiB, card busy "
             f"{busy:.2f} ms in {kernels:.0f} kernels; inside the "
@@ -877,13 +976,13 @@ def phase_pwc_train(tmp):
     g = torch.Generator(device="cuda").manual_seed(5)
     backward = {}
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        wall, busy, kernels = cv_backward(kernel, level_shapes, dtype, g)
-        backward[name] = {"ms": sum(wall.values()), "busy_ms": busy}
-        log(f"[pwc_train] cost-volume backward alone (plain version's autograd), {name}, "
-            f"[8, {h}>>l, {w}>>l, C]: "
-            + ", ".join(f"level {lvl}: {ms:.3f} ms" for lvl, ms in zip(LEVEL_CHANNELS, wall.values()))
-            + f"; sum {backward[name]['ms']:.3f} ms as its caller waits, card busy {busy:.3f} ms "
-              f"in {kernels:.0f} kernels")
+        backward[name] = cv_backward(kernel, level_shapes, dtype, g)
+        k, p = backward[name]["kernel"], backward[name]["plain"]
+        log(f"[pwc_train] cost-volume backward alone, {name}, [8, {h}>>l, {w}>>l, C], five "
+            f"levels: kernel graph_ms {k['graph_ms']:.4f}, card busy {k['busy_ms']:.4f} ms in "
+            f"{k['kernels']:.0f} kernels, {k['ms']:.3f} ms as its caller waits; plain version's "
+            f"autograd card busy {p['busy_ms']:.3f} ms in {p['kernels']:.0f} kernels, "
+            f"{p['ms']:.3f} ms as its caller waits")
 
     # the step-driven loop and the per-sample report, as a user calls them
     ckpt, preds = os.path.join(tmp, "pwc_ckpt"), os.path.join(tmp, "pwc_preds")
@@ -896,6 +995,7 @@ def phase_pwc_train(tmp):
     seconds = time.perf_counter() - t0
     # 2 steps + one validation batch + the flow panel, 5 levels each
     require_launches(kernel, "pwc_fit (2 steps, 1 validation batch, 1 panel)", want=20)
+    require_backward(kernel, "pwc_fit (2 steps)", want=10, variant="bwd_bf16")
     saved = CheckpointManager(ckpt, best_mode="min").restore()
     avg_epe, avg_dur, rows = pwc_trainer.pwc_eval_report(state.model, ds, batch_size=8, policy=BF16,
                                                          save_preds_dir=preds)
@@ -905,9 +1005,10 @@ def phase_pwc_train(tmp):
         raise AssertionError(f"pwc_fit / pwc_eval_report: step {state.step}, rows {rows}, "
                              f"files {os.listdir(preds)}")
     log(f"[pwc_train] pwc_fit: 2 steps + validation + flow panel + checkpoint in {seconds:.2f} s, "
-        f"20 mma_bf16 launches; pwc_eval_report: {len(rows)} rows, EPE {avg_epe:.4f}, "
+        f"20 mma_bf16 and 10 bwd_bf16 launches; pwc_eval_report: {len(rows)} rows, EPE {avg_epe:.4f}, "
         f"{1e3 * avg_dur:.2f} ms a sample")
-    return launches, backward, max(errs.values())
+    return {"launches": launches, "backward": backward, "errs": errs,
+            "bwd_err": max(bwd_errs.values()), "steps": steps}
 
 
 def phase_joint(fisr, pwc):
@@ -930,7 +1031,7 @@ def phase_joint(fisr, pwc):
     # both flow calls of a step take 2B rows of the upscaled frame's pyramid
     side = TRAIN_PATCH * FLOW_UPSCALE
     level_shapes = 2 * [(4, side >> lvl, side >> lvl, c) for lvl, c in LEVEL_CHANNELS.items()]
-    launches, max_err = None, 0.0
+    launches, max_err, bwd_launches, bwd_err = None, 0.0, {}, 0.0
     try:
         for name, train_pwc in (("both", True), ("frozen", False)):
             restore()  # each case starts from the weights this phase was given
@@ -939,12 +1040,18 @@ def phase_joint(fisr, pwc):
             step = joint.make_joint_train_step(policy=F32, upscale=FLOW_UPSCALE)
             before = [snapshot(fisr), snapshot(pwc)]
             reset_launches(kernel)
-            with recorded_launches(kernel) as seen:
+            with recorded_launches(kernel) as (seen, seen_bwd):
                 state, m = step(state, batch)
             torch.cuda.synchronize()
             require_launches(kernel, f"joint step ({name})", want=10, variant="fma_f32")
-            launches = kernel.LAUNCHES
+            # the flow model's backward runs only when it trains
+            require_backward(kernel, f"joint step ({name})", want=10 if train_pwc else 0,
+                             variant="bwd_f32")
+            launches, bwd_launches[name] = kernel.LAUNCHES, kernel.BACKWARD_LAUNCHES
             err = check_recorded(kernel, seen, level_shapes, f"joint step ({name})", seed=7)
+            if train_pwc:
+                bwd_err = max(bwd_err, check_recorded(
+                    kernel, seen_bwd, level_shapes, f"joint step ({name})", seed=10, backward=True))
             if not moved(before[0], fisr) or moved(before[1], pwc) != train_pwc:
                 raise AssertionError(f"joint step ({name}): FISRnet moved {moved(before[0], fisr)}, "
                                      f"PWC-Net moved {moved(before[1], pwc)}")
@@ -960,16 +1067,24 @@ def phase_joint(fisr, pwc):
             peak = torch.cuda.max_memory_allocated() / 2**30
             step16 = joint.make_joint_train_step(policy=BF16, upscale=FLOW_UPSCALE)
             reset_launches(kernel)
-            with recorded_launches(kernel) as seen:
+            with recorded_launches(kernel) as (seen, seen_bwd):
                 step16(state, batch)
             torch.cuda.synchronize()
             require_launches(kernel, f"joint step ({name}, bf16)", want=10)
+            require_backward(kernel, f"joint step ({name}, bf16)", want=10 if train_pwc else 0,
+                             variant="bwd_bf16")
             err16 = check_recorded(kernel, seen, level_shapes, f"joint step ({name}, bf16)", seed=8)
+            if train_pwc:
+                bwd_err = max(bwd_err, check_recorded(
+                    kernel, seen_bwd, level_shapes, f"joint step ({name}, bf16)", seed=11,
+                    backward=True))
             max_err = max(max_err, err, err16)
             ms16 = wall_ms(lambda: step16(state, batch))
             busy, kernels = device_busy(lambda: step(state, batch))
             log(f"[joint] {name}: 10 cost-volume launches a step (2 flow calls x 5 levels; fma_f32 "
-                f"in f32, mma_bf16 in bf16), the kernel against the plain version at their shapes "
+                f"in f32, mma_bf16 in bf16) and {bwd_launches[name]} backward launches, the "
+                f"kernels against the plain versions at their shapes (backward max |diff| so far "
+                f"{bwd_err:.3g}) "
                 f"[4, {side}>>l, {side}>>l, C]: max |diff| {err:.3g} (f32), {err16:.3g} (bf16); B=2 windows of {TRAIN_PATCH}x{TRAIN_PATCH}, upscale "
                 f"{FLOW_UPSCALE}: joint_loss {losses[0]:.6f} -> {losses[-1]:.6f} over 6 steps on one "
                 f"batch, PSNR {float(m['joint_PSNR']):.3f} dB; f32 {ms:.2f} ms a step, bf16 "
@@ -979,7 +1094,7 @@ def phase_joint(fisr, pwc):
             del state
     finally:
         restore()
-    return launches, max_err
+    return launches, max_err, bwd_launches, bwd_err
 
 
 def main() -> int:
@@ -1003,7 +1118,7 @@ def main() -> int:
         return out
 
     timed(phase_build)
-    max_err, levels = timed(phase_kernel)
+    max_err, levels, bwd_err_ragged = timed(phase_kernel)
     from fisr_tpu_torch.convert import params
 
     # full-width deterministic weights (the TF-oracle generator), made once
@@ -1016,8 +1131,12 @@ def main() -> int:
         launches_staged = timed(phase_staged, fisr, pwc, folder, tmp)
         timed(phase_eval, fisr, tmp)
         timed(phase_train, tmp)
-        launches_pwc_train, backward, err_pwc_train = timed(phase_pwc_train, tmp)
-    launches_joint, err_joint = timed(phase_joint, fisr, pwc)
+        pwc_train = timed(phase_pwc_train, tmp)
+    launches_joint, err_joint, bwd_launches_joint, bwd_err_joint = timed(phase_joint, fisr, pwc)
+    launches_pwc_train, backward = pwc_train["launches"], pwc_train["backward"]
+    err_pwc_train = max(pwc_train["errs"].values())
+    h, w = PWC_CROP
+    pwc_shapes = [(8, h >> lvl, w >> lvl, c) for lvl, c in LEVEL_CHANNELS.items()]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     log(smi.stdout.strip().splitlines()[0])
@@ -1041,9 +1160,56 @@ def main() -> int:
         # the backward (autograd of the plain version) at the five level
         # shapes of the pwc_train batch, [8, 256>>l, 448>>l, C]: as its caller
         # waits for it (the host's launches) and the card's busy time
-        "backward_ms": backward["bf16"]["ms"], "backward_f32_ms": backward["f32"]["ms"],
-        "backward_busy_ms": backward["bf16"]["busy_ms"],
-        "backward_f32_busy_ms": backward["f32"]["busy_ms"],
+        "backward_ms": backward["bf16"]["plain"]["ms"],
+        "backward_f32_ms": backward["f32"]["plain"]["ms"],
+        "backward_busy_ms": backward["bf16"]["plain"]["busy_ms"],
+        "backward_f32_busy_ms": backward["f32"]["plain"]["busy_ms"],
+    }, {
+        "name": "cost_volume", "route": "cuda", "variant": "fma_f32",
+        "source": "fisr_tpu_torch/csrc/cost_volume.cu",
+        "replaces": "fisr_tpu/kernels/cost_volume_pallas.py:34",
+        # f32 runs on the training paths (and --compute_dtype float32): a
+        # make_pwc_train_step step's count, and per step of each path
+        "launches": pwc_train["steps"]["f32"]["launches"],
+        "launches_train": {"pwc_train_step": pwc_train["steps"]["f32"]["launches"],
+                           "joint_step": launches_joint},
+        # the inference level shapes, the ragged shapes, the training shapes
+        "max_abs_err": max([r["f32_err"] for r in levels] + [pwc_train["errs"]["f32"]]),
+        # one frame pair's five levels (levels 6..2) in f32
+        "ms": sum(r["f32_ms"] for r in levels),
+        "graph_ms": sum(r["f32_graph_ms"] for r in levels),
+        "plain_ms": sum(r["f32_plain_ms"] for r in levels),
+        "bound_ms": sum(r["f32_bound_ms"] for r in levels),
+        "bound_by": "bytes" if all(r["f32_bound_by"] == "bytes" for r in levels) else "operations",
+        "library_ms": None,
+    }, {
+        "name": "cost_volume_backward", "route": "cuda", "variants": ["bwd_f32", "bwd_bf16"],
+        "source": "fisr_tpu_torch/csrc/cost_volume.cu",
+        # the TPU kernel's VJP (an XLA composition in the JAX package)
+        "replaces": "fisr_tpu/kernels/cost_volume_pallas.py:77",
+        "launches": pwc_train["steps"]["f32"]["bwd_launches"],
+        "launches_train": {"pwc_train_step": pwc_train["steps"]["f32"]["bwd_launches"],
+                           "joint_step": bwd_launches_joint["both"],
+                           "joint_step_flow_frozen": bwd_launches_joint["frozen"]},
+        # the ragged shapes and the shapes the pwc_train and joint steps launched
+        "max_abs_err": max(bwd_err_ragged, pwc_train["bwd_err"], bwd_err_joint),
+        # one backward at each of the five pwc_train level shapes, f32 (bf16 beside)
+        "ms": backward["f32"]["kernel"]["ms"],
+        "graph_ms": backward["f32"]["kernel"]["graph_ms"],
+        "busy_ms": backward["f32"]["kernel"]["busy_ms"],
+        "kernels": backward["f32"]["kernel"]["kernels"],
+        "plain_ms": backward["f32"]["plain"]["ms"],
+        "plain_busy_ms": backward["f32"]["plain"]["busy_ms"],
+        "plain_kernels": backward["f32"]["plain"]["kernels"],
+        "bound_ms": sum(cv_bwd_bound_ms(s, torch.float32)[0] for s in pwc_shapes),
+        "bound_by": "bytes" if all(cv_bwd_bound_ms(s, torch.float32)[1] == "bytes"
+                                   for s in pwc_shapes) else "operations",
+        "bf16": {"ms": backward["bf16"]["kernel"]["ms"],
+                 "graph_ms": backward["bf16"]["kernel"]["graph_ms"],
+                 "busy_ms": backward["bf16"]["kernel"]["busy_ms"],
+                 "plain_busy_ms": backward["bf16"]["plain"]["busy_ms"],
+                 "bound_ms": sum(cv_bwd_bound_ms(s, torch.bfloat16)[0] for s in pwc_shapes)},
+        "library_ms": None,
     }]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

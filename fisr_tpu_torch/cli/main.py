@@ -19,10 +19,15 @@ JAX key paths -> arrays), else the TF-oracle generator at full width
 (--deterministic_weights). Without either they come from the experiment's
 newest checkpoint (<checkpoint_dir>/FISRnet_exp<exp_num>, what the train
 phase writes), else a fresh init, said aloud (the JAX CLI's `_load_params`).
-The test that ends the train phase scores the checkpoint it just wrote. PWC-Net
-weights come from --pwc_params_npz or the generator; without either the run
-stops (its checkpoint loader is ROADMAP.md, Queue 1 item 6). The JAX CLI's
---jax_cache_dir has no counterpart (nothing is compiled ahead of a run).
+The test that ends the train phase scores the checkpoint it just wrote.
+PWC-Net weights come from --pwc_params_npz or the generator, else from the
+best step (least validation EPE) of a checkpoint directory: --pwc_ckpt, or by
+default <checkpoint_dir>/pwcnet (what `train.pwc_trainer.pwc_fit` writes; the
+JAX CLI's `_load_pwc_params`); without any the run stops. Checkpoints in the
+JAX package's orbax format and TF1 bundles (--fisr_tf_ckpt, --pwc_tf_ckpt)
+raise NotImplementedError (ROADMAP.md, Queue 1 item 6). The JAX CLI's
+--jax_cache_dir has no counterpart (nothing is compiled ahead of a run); every
+other flag of it parses here with its default.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ __all__ = ["parse_args", "main"]
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
         description="FISR on PyTorch/CUDA: joint 2x frame interpolation + 2x super-resolution")
+    p.add_argument("--net_type", type=str, default="FISRnet", choices=["FISRnet"])
     p.add_argument("--phase", type=str, default="FISR_for_video",
                    choices=["train", "test", "FISR_for_video"])
     p.add_argument("--scale_factor", type=int, default=2)
@@ -110,6 +116,9 @@ def parse_args(argv=None):
     p.add_argument("--frame_folder_path", type=str, default="./FISR_test_folder/scene1")
     p.add_argument("--video_out_dir", type=str, default=None,
                    help="output frame folder (default: <frame_folder>/FISR_frames)")
+    p.add_argument("--FISR_input_size", type=int, nargs=2, default=[1080, 1920],
+                   help="accepted for the reference's command lines; the video phase "
+                        "takes its size from the frames")
     p.add_argument("--frame_num", type=int, default=5)
     p.add_argument("--FISR_test_patch", type=int, nargs=2, default=[2, 2],
                    help="patch grid of the staged video path's FISRnet stage")
@@ -130,6 +139,13 @@ def parse_args(argv=None):
                         "(the JAX package's param tree)")
     p.add_argument("--pwc_params_npz", type=str, default=None,
                    help="PWC-Net (lg-6-2) weights, same format")
+    p.add_argument("--pwc_ckpt", type=str, default=None,
+                   help="PWC-Net checkpoint directory (what pwc_fit writes); default: "
+                        "<checkpoint_dir>/pwcnet where it holds a checkpoint")
+    p.add_argument("--fisr_tf_ckpt", type=str, default=None,
+                   help="TF1 TensorBundle prefix for FISRnet: not ported yet, raises")
+    p.add_argument("--pwc_tf_ckpt", type=str, default=None,
+                   help="TF1 TensorBundle prefix for PWC-Net: not ported yet, raises")
     p.add_argument("--deterministic_weights", action="store_true",
                    help="full-width weights from the TF-oracle generator "
                         "(convert/oracle.py) for any model without an .npz")
@@ -145,6 +161,11 @@ def _model_dir(args) -> str:
 def _model(args, device, what):
     from fisr_tpu_torch.convert import params
 
+    tf_ckpt = getattr(args, f"{what}_tf_ckpt")
+    if tf_ckpt:
+        raise NotImplementedError(
+            f"--{what}_tf_ckpt {tf_ckpt}: reading TF1 checkpoints is not ported yet "
+            "(ROADMAP.md, Queue 1 item 6)")
     npz = getattr(args, f"{what}_params_npz")
     from_jax, deterministic = {
         "fisr": (params.fisrnet_from_jax, params.deterministic_fisrnet),
@@ -153,20 +174,39 @@ def _model(args, device, what):
         return from_jax(params.tree_from_npz(npz), device=device)
     if args.deterministic_weights:
         return deterministic(device=device)
-    ckpt = os.path.join(args.checkpoint_dir, _model_dir(args))
-    if what == "fisr" and os.path.isdir(ckpt):
-        from fisr_tpu_torch.train.checkpoint import CheckpointManager
-
-        mgr = CheckpointManager(ckpt)
-        if mgr.latest_step() is not None:
-            print(f" [*] restored checkpoint step {mgr.latest_step()}")
-            return from_jax(mgr.restore()["params"], device=device)
+    tree = _restore(args, what)
+    if tree is not None:
+        return from_jax(tree["params"], device=device)
     if what == "fisr":
         from fisr_tpu_torch.models.fisrnet import FISRnet
 
         print(" [!] no checkpoint found: using fresh init")
         return FISRnet(sf=args.scale_factor, device=device)
-    raise SystemExit(f"no {what} weights: pass --{what}_params_npz or --deterministic_weights")
+    raise SystemExit(f"no {what} weights: pass --{what}_params_npz, --pwc_ckpt or "
+                     "--deterministic_weights")
+
+
+def _restore(args, what):
+    """The checkpoint tree for `what`, or None where there is none: FISRnet's
+    newest step of the experiment, PWC-Net's best step (least metric) of
+    --pwc_ckpt or <checkpoint_dir>/pwcnet."""
+    from fisr_tpu_torch.train.checkpoint import CheckpointManager
+
+    if what == "fisr":
+        path = os.path.join(args.checkpoint_dir, _model_dir(args))
+    else:
+        path = args.pwc_ckpt or os.path.join(args.checkpoint_dir, "pwcnet")
+    if os.path.isdir(path):
+        mgr = CheckpointManager(path, best_mode=None if what == "fisr" else "min")
+        if mgr.latest_step() is not None:
+            step = mgr.latest_step() if what == "fisr" else mgr.best_step()
+            tree = mgr.restore(step)
+            print(f" [*] restored checkpoint step {step}" if what == "fisr"
+                  else f" [*] restored PWC-Net checkpoint step {step} from {path}")
+            return tree
+    if what == "pwc" and args.pwc_ckpt:
+        raise FileNotFoundError(f"--pwc_ckpt {args.pwc_ckpt}: no checkpoint found")
+    return None
 
 
 def _policy(args):
@@ -229,13 +269,11 @@ def run_video(args, device):
     from fisr_tpu_torch.cli._common import parse_grid
     from fisr_tpu_torch.infer.video import run_video_pipeline
 
-    out = run_video_pipeline(
+    return run_video_pipeline(
         _model(args, device, "fisr"), _model(args, device, "pwc"), args.frame_folder_path,
         out_folder=args.video_out_dir, grid=tuple(args.FISR_test_patch), policy=_policy(args),
         write_artifacts=not args.fused, frame_num=args.frame_num, fused=args.fused,
         flow_upscale=args.flow_scale, fisr_grid=parse_grid(args.fisr_grid), device=device)
-    print(f"[*] FISR_for_video finished: {len(out)} frames")
-    return out
 
 
 def main(argv=None):
@@ -243,14 +281,20 @@ def main(argv=None):
     from fisr_tpu_torch.device import resolve_device
 
     device = resolve_device(args.device)
+    print(f"Model: {args.net_type}, phase: {args.phase}, exp: {args.exp_num}")
     if args.phase == "train":
         run_train(args, device)
         print("[*] Training finished! Testing starts")
         # the trained weights, whatever weights the flags name
         args.fisr_params_npz, args.deterministic_weights = None, False
-        return run_test(args, device)
-    # the runners, the pipeline's stages and the metrics turn autograd off themselves
-    return run_test(args, device) if args.phase == "test" else run_video(args, device)
+        result = run_test(args, device)
+    elif args.phase == "test":
+        # the runners, the pipeline's stages and the metrics turn autograd off themselves
+        result = run_test(args, device)
+    else:
+        result = run_video(args, device)
+    print(f"[*] {args.phase} finished!")
+    return result
 
 
 if __name__ == "__main__":

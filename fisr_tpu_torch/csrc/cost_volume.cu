@@ -14,7 +14,8 @@
 // the byte time only on the tensor cores: at the f32 FMA peak (67 TFLOP/s)
 // they alone take as long as the bf16 bytes at C = 32 and longer from C = 64.
 //
-// Two kernels, chosen by type alone (never by whether a launch succeeded):
+// Two forward kernels, chosen by type alone (never by whether a launch
+// succeeded), and one backward kernel for both types:
 //
 // bf16: cost_volume_kernel_mma_bf16, a banded matrix product. For one output
 //   row, one dy and 8 consecutive pixels x0..x0+7, the 8 x (2d+1) costs are a
@@ -50,135 +51,57 @@
 //   No wgmma or TMA: the tiles are 8 pixels wide and the product is banded.
 //
 // f32: cost_volume_kernel_fma_f32. f32 inputs need f32 products (TF32 would
-//   break the 1e-5 agreement with the plain version), so they keep the
-//   CUDA-core kernel: a block stages one c1 row segment and its 2d+1 c2 rows
-//   in shared memory, 8 channels a pass, and each thread keeps a 4-pixel x
-//   (2d+1)-shift tile of sums in registers.
+//   break the 1e-5 agreement with the plain version), so the products stay on
+//   the CUDA cores; at the FMA peak a frame pair's 9 GFLOP take about half its
+//   byte time, so FMAs can reach the byte bound if the staging keeps up:
+//   * a block owns 8 output rows x 16 pixels and stages the 8+2d c2 rows it
+//     needs once (a c2 row comes from L2 twice at d = 4, not 2d+1 times; of
+//     the tiles tried, 4 x 32 and 8 x 32 pixels among them, the fastest);
+//   * staging is cp.async of raw NHWC runs, 16 bytes at a time where C % 4 ==
+//     0 and the bases are 16-byte aligned (4 bytes otherwise), 16 channels a
+//     pass through two buffers; halo zeros come from source-size-0 copies;
+//   * warp i computes dy index i; lane (pixel group g, row r) keeps a 4-pixel
+//     x (2d+1)-dx tile of sums and reads float4s of 4 channels: 4 c1 and
+//     4+2d c2 loads give 16 (2d+1) FMAs. A staged pixel is 16+4 floats and a
+//     staged row an odd number of pixels, so the 8 lanes of a quarter warp
+//     (the 8 rows of one pixel group) meet 8 different 16-byte bank groups;
+//   * small levels fill the card: where the tiles alone give fewer than two
+//     blocks an SM, the channel passes are split over a cluster of up to 8
+//     blocks on one tile; each keeps its partial tile in shared memory and,
+//     after a cluster barrier, sums a share of the tile over the cluster's
+//     blocks in rank order (distributed shared memory: no atomics, the same
+//     result every run);
+//   * the tile is scaled by 1/C once and goes out through shared memory as one
+//     contiguous run per row, in 16-byte stores;
+//   * where the tiles need no split, the blocks are persistent (two an SM) and
+//     each walks its tiles with one stream of channel passes through the two
+//     buffers: the next tile's first copies fly while this tile is finished
+//     and written out (staging alone took as long as the FMAs and the
+//     write-out together when every block staged its first pass cold).
+//   Each (pixel, shift) is summed with FMAs in channel order within a split.
+//
+// backward: cost_volume_bwd_kernel, both input gradients of the cost volume,
+//
+//   dc1[b,y,x,c] = (1/C) sum_k g[b,y,x,k] * c2[b,y+dy,x+dx,c]
+//   dc2[b,y,x,c] = (1/C) sum_k g[b,y-dy,x-dx,k] * c1[b,y-dy,x-dx,c]
+//
+//   in gather form: each output element is summed by one thread in f32 (no
+//   atomics, deterministic) and cast once. The JAX package's VJP (_cv_bwd,
+//   cost_volume_pallas.py:77-89) is an XLA composition of 81 shifted products;
+//   here a block owns 32 pixels x 32 channels of one row of one gradient and,
+//   for each dy, stages the other input's row (32+2d pixels) and the 2d+1
+//   values of g that dy needs per pixel in shared memory. One launch computes
+//   both gradients (or the one asked for). Bound by bytes (g, c1, c2 read
+//   once, dc1, dc2 written once); simple first, no tensor cores.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
-
-// ---- f32: FMAs on the CUDA cores ---------------------------------------------
-
-constexpr int TX = 128;  // output pixels per block: one segment of one row
-constexpr int PX = 4;    // consecutive pixels per thread
-constexpr int CC = 8;    // channels staged per pass
-
-template <int D>
-struct Geo {
-  static constexpr int N = 2 * D + 1;            // shifts per axis
-  static constexpr int NN = N * N;               // output channels
-  static constexpr int PW = TX + 2 * D;          // staged c2 columns
-  // row stride in floats: a multiple of 4 for float4 reads, and 4 mod 8 so
-  // the transposing stores of a warp meet at most 2-way bank conflicts
-  static constexpr int PWS = (PW + 7) / 8 * 8 + 4;
-  static constexpr int THREADS = (TX / PX) * N;  // one warp per dy
-  static constexpr int STAGE = N * CC * PWS + CC * TX;
-  static constexpr int OUT = TX * NN;
-  static constexpr int SMEM_FLOATS = STAGE > OUT ? STAGE : OUT;
-  static_assert(D % 2 == 0, "float4 reads of PX + 2D columns need D even");
-  static_assert(SMEM_FLOATS * 4 <= 48 * 1024, "static shared-memory limit");
-};
-
-template <int D>
-__global__ void __launch_bounds__(Geo<D>::THREADS)
-cost_volume_kernel_fma_f32(const float* __restrict__ c1, const float* __restrict__ c2,
-                           float* __restrict__ out, int H, int W, int C, float inv_c) {
-  using G = Geo<D>;
-  extern __shared__ float4 smem_f4[];
-  float* smem = reinterpret_cast<float*>(smem_f4);
-  float* c2s = smem;                        // [N][CC][PWS]: rows y-D..y+D
-  float* c1s = smem + G::N * CC * G::PWS;   // [CC][TX]
-  float* outs = smem;                       // [TX][NN], reused after the loop
-
-  const int xbase = blockIdx.x * TX;
-  const int y = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int tx = tid % (TX / PX);  // pixel group: pixels 4*tx .. 4*tx+3
-  const int ty = tid / (TX / PX);  // dy index 0..2D
-
-  float acc[PX][G::N];
-#pragma unroll
-  for (int j = 0; j < PX; ++j)
-#pragma unroll
-    for (int k = 0; k < G::N; ++k) acc[j][k] = 0.f;
-
-  const int64_t img = static_cast<int64_t>(b) * H;
-  for (int c0 = 0; c0 < C; c0 += CC) {
-    __syncthreads();  // the previous chunk's readers are done
-    for (int i = tid; i < G::N * G::PW * CC; i += G::THREADS) {
-      const int c = i % CC;
-      const int rest = i / CC;
-      const int p = rest % G::PW;
-      const int r = rest / G::PW;
-      const int gy = y + r - D;
-      const int gx = xbase + p - D;
-      const int ch = c0 + c;
-      float v = 0.f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W && ch < C)
-        v = c2[((img + gy) * W + gx) * C + ch];
-      c2s[(r * CC + c) * G::PWS + p] = v;
-    }
-    for (int i = tid; i < TX * CC; i += G::THREADS) {
-      const int c = i % CC;
-      const int p = i / CC;
-      const int gx = xbase + p;
-      const int ch = c0 + c;
-      float v = 0.f;
-      if (gx < W && ch < C) v = c1[((img + y) * W + gx) * C + ch];
-      c1s[c * TX + p] = v;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int c = 0; c < CC; ++c) {
-      const float4 a4 = reinterpret_cast<const float4*>(c1s + c * TX)[tx];
-      const float a[PX] = {a4.x, a4.y, a4.z, a4.w};
-      const float4* row =
-          reinterpret_cast<const float4*>(c2s + (ty * CC + c) * G::PWS + PX * tx);
-      float v[PX + 2 * D];
-#pragma unroll
-      for (int q = 0; q < (PX + 2 * D) / 4; ++q) {
-        const float4 t = row[q];
-        v[4 * q] = t.x;
-        v[4 * q + 1] = t.y;
-        v[4 * q + 2] = t.z;
-        v[4 * q + 3] = t.w;
-      }
-#pragma unroll
-      for (int j = 0; j < PX; ++j)
-#pragma unroll
-        for (int k = 0; k < G::N; ++k) acc[j][k] = fmaf(a[j], v[j + k], acc[j][k]);
-    }
-  }
-
-  __syncthreads();  // staging buffers become the output tile
-#pragma unroll
-  for (int j = 0; j < PX; ++j)
-#pragma unroll
-    for (int k = 0; k < G::N; ++k)
-      outs[(PX * tx + j) * G::NN + ty * G::N + k] = acc[j][k] * inv_c;
-  __syncthreads();
-
-  const int valid = min(TX, W - xbase);
-  float* dst = out + ((img + y) * W + xbase) * G::NN;
-  for (int i = tid; i < valid * G::NN; i += G::THREADS) dst[i] = outs[i];
-}
-
-template <int D>
-cudaError_t launch_fma_f32(const void* c1, const void* c2, void* out, int B, int H, int W,
-                           int C, cudaStream_t stream) {
-  using G = Geo<D>;
-  const dim3 grid((W + TX - 1) / TX, H, B);
-  cost_volume_kernel_fma_f32<D><<<grid, G::THREADS, G::SMEM_FLOATS * sizeof(float), stream>>>(
-      static_cast<const float*>(c1), static_cast<const float*>(c2), static_cast<float*>(out),
-      H, W, C, 1.0f / static_cast<float>(C));
-  return cudaGetLastError();
-}
 
 // ---- bf16: the banded product on the tensor cores ---------------------------
 
@@ -446,6 +369,394 @@ cudaError_t launch_mma_bf16(const void* c1, const void* c2, void* out, int B, in
   return cudaGetLastError();
 }
 
+// ---- f32: FMAs on the CUDA cores ---------------------------------------------
+
+constexpr int FR = 8;          // output rows per block
+constexpr int FTX = 16;        // output pixels per row per block
+constexpr int FPX = 4;         // consecutive pixels per thread
+constexpr int FKC = 16;        // channels per pass
+constexpr int FS = FKC + 4;    // floats per staged pixel
+constexpr int FMAX_SPLIT = 8;  // blocks of a cluster (the portable most)
+
+template <int D>
+struct FmaGeo {
+  static constexpr int N = 2 * D + 1;
+  static constexpr int NN = N * N;
+  static constexpr int THREADS = 32 * N;       // warp i: dy index i
+  static constexpr int C2_ROWS = FR + 2 * D;   // staged c2 rows y0-D .. y0+FR-1+D
+  static constexpr int RP2 = FTX + 2 * D + 1;  // staged pixels per c2 row, one of them padding
+  static constexpr int RP1 = FTX + 1;          // staged pixels per c1 row, one of them padding
+  static constexpr int C1_PIX = C2_ROWS * RP2; // the c1 rows start after this many pixels
+  static constexpr int STAGE = (C1_PIX + FR * RP1) * FS;  // floats in one staging buffer
+  // one output row of the tile, plus room to shift it by up to 3 values
+  static constexpr int OUT_ROW = FTX * NN + 4;
+  static constexpr int SMEM_BYTES = 4 * 2 * STAGE;
+  static_assert(FR * (FTX / FPX) == 32, "a warp's lanes are the tile's rows x pixel groups");
+  static_assert(RP2 % 2 == 1 && RP1 % 2 == 1 && FS % 8 == 4, "odd row strides of FS % 8 == 4 floats");
+  static_assert(STAGE % 4 == 0 && OUT_ROW % 4 == 0, "buffers start on 16-byte units");
+  static_assert(FR * OUT_ROW <= STAGE, "a tile's output fits in one staging buffer");
+  static_assert(2 * (SMEM_BYTES + 1024) <= 228 * 1024, "two blocks share an SM");
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool real) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(real ? 4 : 0)
+               : "memory");
+}
+
+// Copy channels c0 .. c0+kc-1 of the block's staged pixels into one buffer,
+// VEC floats a copy (4: 16-byte copies, 1: 4-byte copies); zeros outside the
+// frame and beyond C. A warp takes whole staged rows.
+template <int D, int VEC>
+__device__ __forceinline__ void fma_stage(const float* __restrict__ c1,
+                                          const float* __restrict__ c2, float* stage,
+                                          int64_t img, int y0, int x0, int H, int W, int C,
+                                          int c0, int kc) {
+  using G = FmaGeo<D>;
+  constexpr int SLOTS = FKC / VEC;
+  const int lane = threadIdx.x & 31;
+  for (int row = threadIdx.x >> 5; row < G::C2_ROWS + FR; row += G::THREADS / 32) {
+    const bool is_c2 = row < G::C2_ROWS;
+    const int gy = is_c2 ? y0 + row - D : y0 + row - G::C2_ROWS;
+    const int gx0 = is_c2 ? x0 - D : x0;
+    const int npx = is_c2 ? FTX + 2 * D : FTX;
+    const bool row_ok = gy >= 0 && gy < H;
+    const float* src = is_c2 ? c2 : c1;
+    const int64_t base = ((img + gy) * W + gx0) * C + c0;
+    float* dst = stage + (is_c2 ? row * G::RP2 : G::C1_PIX + (row - G::C2_ROWS) * G::RP1) * FS;
+    for (int it = lane; it < npx * SLOTS; it += 32) {
+      const int px = it / SLOTS;
+      const int ch = (it % SLOTS) * VEC;
+      if (ch >= kc) continue;
+      const bool real = row_ok && gx0 + px >= 0 && gx0 + px < W && c0 + ch < C;
+      const float* from = src + (real ? base + static_cast<int64_t>(px) * C + ch : 0);
+      if constexpr (VEC == 4)
+        cp_async<16>(dst + px * FS + ch, from, real);
+      else
+        cp_async4(dst + px * FS + ch, from, real);
+    }
+  }
+}
+
+// The tile a block works on: rows y0 .. y0+FR-1, pixels x0 .. x0+FTX-1 of image b
+struct FmaTile {
+  int64_t img;  // b * H
+  int y0, x0;
+};
+
+__device__ __forceinline__ FmaTile fma_tile(int t, int tiles_x, int tiles_y, int H) {
+  return {static_cast<int64_t>(t / (tiles_x * tiles_y)) * H, (t / tiles_x) % tiles_y * FR,
+          t % tiles_x * FTX};
+}
+
+// Grid: split == 1: persistent blocks, each walking the tiles t = blockIdx.x,
+// blockIdx.x + gridDim.x, ...; split > 1: one tile per cluster of `split`
+// blocks, rank = blockIdx.x % split. A block's channel passes of all its
+// tiles form one stream through the two buffers, so the next tile's first
+// pass is in flight while this tile is finished and written out.
+// VEC: floats a copy, 4 (C % 4 == 0, 16-byte aligned bases) or 1.
+template <int D, int VEC>
+__global__ void __launch_bounds__(FmaGeo<D>::THREADS, 2)
+cost_volume_kernel_fma_f32(const float* __restrict__ c1, const float* __restrict__ c2,
+                           float* __restrict__ out, int B, int H, int W, int C, int split,
+                           float inv_c) {
+  using G = FmaGeo<D>;
+  namespace cg = cooperative_groups;
+  extern __shared__ float4 fsmem_f4[];
+  float* smem = reinterpret_cast<float*>(fsmem_f4);  // [2][STAGE]; a tile's output in one
+
+  const int tiles_x = (W + FTX - 1) / FTX, tiles_y = (H + FR - 1) / FR;
+  const int tiles = tiles_x * tiles_y * B;
+  const int rank = blockIdx.x % split;  // the block's share of the channel passes
+  const int stride = gridDim.x / split;
+  const int i = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = lane % FR, g = lane / FR;  // output row r of the tile, pixels 4g .. 4g+3
+
+  // c1 pixel 4g of row r; c2 staged pixel 4g (image pixel x0+4g-D) of row r+i
+  const int a_off = (G::C1_PIX + r * G::RP1 + FPX * g) * FS;
+  const int b_off = ((r + i) * G::RP2 + FPX * g) * FS;
+
+  const int passes = (C + FKC - 1) / FKC;
+  const int p0 = rank * passes / split, p1 = (rank + 1) * passes / split;
+  auto stage_pass = [&](int t, int p, float* buf) {
+    const FmaTile tl = fma_tile(t, tiles_x, tiles_y, H);
+    const int c0 = p * FKC;
+    fma_stage<D, VEC>(c1, c2, buf, tl.img, tl.y0, tl.x0, H, W, C, c0,
+                      (min(FKC, C - c0) + 3) / 4 * 4);
+  };
+
+  int s = 0;  // this block's stages so far: stage s lives in buffer s & 1
+  int t = blockIdx.x / split;
+  if (t < tiles) stage_pass(t, p0, smem);
+  for (; t < tiles; t += stride) {
+    float acc[FPX][G::N];
+#pragma unroll
+    for (int j = 0; j < FPX; ++j)
+#pragma unroll
+      for (int k = 0; k < G::N; ++k) acc[j][k] = 0.f;
+
+    for (int p = p0; p < p1; ++p, ++s) {
+      cp_async_wait_all();
+      // stage s has landed, and every warp is past stage s-1 (and the last
+      // tile's write-out): the other buffer is free
+      __syncthreads();
+      float* next = smem + ((s + 1) & 1) * G::STAGE;
+      if (p + 1 < p1)
+        stage_pass(t, p + 1, next);
+      else if (t + stride < tiles)
+        stage_pass(t + stride, p0, next);
+      const float* buf = smem + (s & 1) * G::STAGE;
+      const int kq = (min(FKC, C - p * FKC) + 3) / 4;
+      for (int q4 = 0; q4 < kq; ++q4) {
+        float4 a[FPX];
+#pragma unroll
+        for (int j = 0; j < FPX; ++j)
+          a[j] = *reinterpret_cast<const float4*>(buf + a_off + j * FS + 4 * q4);
+#pragma unroll
+        for (int q = 0; q < FPX + 2 * D; ++q) {
+          const float4 v = *reinterpret_cast<const float4*>(buf + b_off + q * FS + 4 * q4);
+#pragma unroll
+          for (int j = 0; j < FPX; ++j) {
+            const int k = q - j;  // dx index of pixel 4g+j against c2 pixel 4g+q
+            if (k >= 0 && k < G::N) {
+              acc[j][k] = fmaf(a[j].x, v.x, acc[j][k]);
+              acc[j][k] = fmaf(a[j].y, v.y, acc[j][k]);
+              acc[j][k] = fmaf(a[j].z, v.z, acc[j][k]);
+              acc[j][k] = fmaf(a[j].w, v.w, acc[j][k]);
+            }
+          }
+        }
+      }
+    }
+
+    // The buffer of the last stage becomes the (partial) output tile; the
+    // other one holds the next tile's first pass, in flight. A cluster's
+    // blocks (one tile each, no next pass) all use the first buffer, so that
+    // one address names the tile in each of them, whatever their pass counts.
+    // Row rr's run of out starts shift(rr) values into its OUT_ROW, so that
+    // the 16-byte units of the tile are the 16-byte units of device memory.
+    __syncthreads();
+    const FmaTile tl = fma_tile(t, tiles_x, tiles_y, H);
+    float* tile = split > 1 ? smem : smem + ((s - 1) & 1) * G::STAGE;
+    auto out_row = [&](int rr) { return out + ((tl.img + tl.y0 + rr) * W + tl.x0) * G::NN; };
+    auto shift = [&](int rr) {
+      return static_cast<int>((reinterpret_cast<uintptr_t>(out_row(rr)) >> 2) & 3);
+    };
+#pragma unroll
+    for (int j = 0; j < FPX; ++j)
+#pragma unroll
+      for (int k = 0; k < G::N; ++k)
+        tile[r * G::OUT_ROW + shift(r) + (FPX * g + j) * G::NN + i * G::N + k] = acc[j][k];
+    if (split > 1)
+      cg::this_cluster().sync();  // every block's partial tile is complete
+    else
+      __syncthreads();
+
+    // this block's share of the tile's 16-byte units, summed over the cluster
+    constexpr int ROW_UNITS = G::OUT_ROW / 4;
+    const int units = FR * ROW_UNITS;
+    const int u0 = rank * units / split, u1 = (rank + 1) * units / split;
+    const int run = min(FTX, W - tl.x0) * G::NN;  // a row's values, contiguous in out
+    for (int u = u0 + static_cast<int>(threadIdx.x); u < u1; u += G::THREADS) {
+      const int rr = u / ROW_UNITS, uu = u % ROW_UNITS;
+      if (tl.y0 + rr >= H) continue;
+      const int e0 = 4 * uu - shift(rr);  // the unit's first value in the run
+      if (e0 + 4 <= 0 || e0 >= run) continue;
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int src = 0; src < split; ++src) {
+        const float* from = split > 1 ? cg::this_cluster().map_shared_rank(tile, src) : tile;
+        const float4 v = *reinterpret_cast<const float4*>(from + rr * G::OUT_ROW + 4 * uu);
+        sum.x += v.x;
+        sum.y += v.y;
+        sum.z += v.z;
+        sum.w += v.w;
+      }
+      sum = make_float4(sum.x * inv_c, sum.y * inv_c, sum.z * inv_c, sum.w * inv_c);
+      float* dst = out_row(rr);
+      if (e0 >= 0 && e0 + 4 <= run) {
+        *reinterpret_cast<float4*>(dst + e0) = sum;
+      } else {
+        const float vals[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          if (e0 + v >= 0 && e0 + v < run) dst[e0 + v] = vals[v];
+      }
+    }
+    // no block leaves (or restages) while another reads its tile
+    if (split > 1) cg::this_cluster().sync();
+  }
+}
+
+// The channel split: the smallest power of two (at most FMAX_SPLIT) that gives
+// two blocks an SM, keeping two channel passes a block or more.
+inline int fma_split(int64_t tiles, int passes, int sms) {
+  int split = 1;
+  while (split < FMAX_SPLIT && tiles * split < 2 * sms && passes >= 2 * split) split *= 2;
+  return split;
+}
+
+template <int D, int VEC>
+cudaError_t launch_fma_f32_vec(const float* c1, const float* c2, float* out, int B, int H, int W,
+                           int C, cudaStream_t stream) {
+  using G = FmaGeo<D>;
+  auto kernel = cost_volume_kernel_fma_f32<D, VEC>;
+  // more than 48 KB of dynamic shared memory is opted into once per device
+  // (as for the bf16 kernel), and the SM count read then
+  static bool opted[64] = {};
+  static int sms[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!opted[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               G::SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    opted[dev] = true;
+  }
+  const int64_t tiles = static_cast<int64_t>((W + FTX - 1) / FTX) * ((H + FR - 1) / FR) * B;
+  if (tiles * FMAX_SPLIT > INT32_MAX) return cudaErrorInvalidValue;
+  const int split = fma_split(tiles, (C + FKC - 1) / FKC, sms[dev]);
+  // split 1: two persistent blocks an SM (or one a tile); else a cluster a tile
+  const int64_t blocks = split == 1 ? std::min<int64_t>(tiles, 2 * sms[dev]) : tiles * split;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(G::THREADS);
+  cfg.dynamicSmemBytes = G::SMEM_BYTES;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, c1, c2, out, B, H, W, C, split,
+                           1.0f / static_cast<float>(C));
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_fma_f32(const void* c1, const void* c2, void* out, int B, int H, int W,
+                           int C, cudaStream_t stream) {
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(c1) | reinterpret_cast<uintptr_t>(c2);
+  const float* a = static_cast<const float*>(c1);
+  const float* b = static_cast<const float*>(c2);
+  float* o = static_cast<float*>(out);
+  if (C % 4 == 0 && bits % 16 == 0) return launch_fma_f32_vec<D, 4>(a, b, o, B, H, W, C, stream);
+  return launch_fma_f32_vec<D, 1>(a, b, o, B, H, W, C, stream);
+}
+
+// ---- backward: both input gradients, gathered ---------------------------------
+
+constexpr int BTX = 32;                      // output pixels per block
+constexpr int BKC = 32;                      // output channels per block: a warp's lanes
+constexpr int BTHREADS = 256;
+constexpr int BGROUPS = BTHREADS / BKC;      // pixel groups: thread t has pixels t/BKC + BGROUPS q
+constexpr int BPX = BTX / BGROUPS;           // pixels per thread
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// One block's tile of one gradient. WHICH 0: dc1, gathered from c2 at (y+dy,
+// x+dx) with g at (y, x); WHICH 1: dc2, gathered from c1 and g both at
+// (y-dy, x-dx). Staged pixel p of a row is image pixel x0-D+p.
+template <int D, int WHICH, typename T>
+__device__ __forceinline__ void bwd_tile(const T* __restrict__ x_src, const T* __restrict__ g,
+                                         T* __restrict__ dst, int64_t img, int y, int x0,
+                                         int c0, int H, int W, int C, float inv_c) {
+  constexpr int N = 2 * D + 1, NN = N * N, PW = BTX + 2 * D;
+  __shared__ float xs[PW][BKC];  // the gathered input's row, the block's channels
+  __shared__ float gs[PW][N];    // g's row times 1/C, the 2d+1 shifts of this dy
+  const int tid = threadIdx.x, c = tid % BKC, pg = tid / BKC;
+  float acc[BPX];
+#pragma unroll
+  for (int q = 0; q < BPX; ++q) acc[q] = 0.f;
+  for (int i = 0; i < N; ++i) {
+    const int sy = WHICH == 0 ? y + i - D : y - (i - D);  // row of the gathered input
+    const int gy = WHICH == 0 ? y : sy;                   // row of g
+    __syncthreads();  // the previous dy's readers are done
+    for (int u = tid; u < PW * BKC; u += BTHREADS) {
+      const int p = u / BKC, cc = u % BKC, gx = x0 - D + p;
+      float v = 0.f;
+      if (sy >= 0 && sy < H && gx >= 0 && gx < W && c0 + cc < C)
+        v = to_f32(x_src[((img + sy) * W + gx) * C + c0 + cc]);
+      xs[p][cc] = v;
+    }
+    for (int u = tid; u < PW * N; u += BTHREADS) {
+      const int p = u / N, j = u % N, gx = x0 - D + p;
+      float v = 0.f;
+      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
+        v = to_f32(g[((img + gy) * W + gx) * NN + i * N + j]) * inv_c;
+      gs[p][j] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < BPX; ++q) {
+      const int p = pg + BGROUPS * q;  // output pixel x0+p
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const int s = WHICH == 0 ? p + D : p + 2 * D - j;  // g's staged pixel
+        const int t = WHICH == 0 ? p + j : s;              // the input's staged pixel
+        acc[q] = fmaf(gs[s][j], xs[t][c], acc[q]);
+      }
+    }
+  }
+  if (c0 + c >= C) return;
+#pragma unroll
+  for (int q = 0; q < BPX; ++q) {
+    const int x = x0 + pg + BGROUPS * q;
+    if (x < W) dst[((img + y) * W + x) * C + c0 + c] = from_f32<T>(acc[q]);
+  }
+}
+
+// grid: (W tiles, H, B x channel chunks x gradients asked for); `first` is the
+// first gradient asked for (0: dc1, 1: dc2), `grads` how many (1 or 2).
+template <int D, typename T>
+__global__ void __launch_bounds__(BTHREADS)
+cost_volume_bwd_kernel(const T* __restrict__ c1, const T* __restrict__ c2,
+                       const T* __restrict__ g, T* __restrict__ dc1, T* __restrict__ dc2,
+                       int H, int W, int C, int chunks, int first, int grads, float inv_c) {
+  const int z = blockIdx.z;
+  const int which = first + z % grads;
+  const int chunk = (z / grads) % chunks;
+  const int64_t img = static_cast<int64_t>(z / grads / chunks) * H;
+  const int y = blockIdx.y, x0 = blockIdx.x * BTX, c0 = chunk * BKC;
+  if (which == 0)
+    bwd_tile<D, 0, T>(c2, g, dc1, img, y, x0, c0, H, W, C, inv_c);
+  else
+    bwd_tile<D, 1, T>(c1, g, dc2, img, y, x0, c0, H, W, C, inv_c);
+}
+
+template <int D, typename T>
+cudaError_t launch_bwd(const void* c1, const void* c2, const void* g, void* dc1, void* dc2,
+                       int B, int H, int W, int C, cudaStream_t stream) {
+  const int first = dc1 ? 0 : 1;
+  const int grads = (dc1 ? 1 : 0) + (dc2 ? 1 : 0);
+  const int chunks = (C + BKC - 1) / BKC;
+  const int64_t z = static_cast<int64_t>(B) * chunks * grads;
+  if (grads == 0) return cudaSuccess;
+  if (z > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((W + BTX - 1) / BTX, H, static_cast<unsigned>(z));
+  cost_volume_bwd_kernel<D, T><<<grid, BTHREADS, 0, stream>>>(
+      static_cast<const T*>(c1), static_cast<const T*>(c2), static_cast<const T*>(g),
+      static_cast<T*>(dc1), static_cast<T*>(dc2), H, W, C, chunks, first, grads,
+      1.0f / static_cast<float>(C));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the tensor-core kernel),
@@ -460,6 +771,26 @@ extern "C" int fisr_cost_volume(const void* c1, const void* c2, void* out, int B
   if (dtype == 0 && search_range == 2) return launch_fma_f32<2>(c1, c2, out, B, H, W, C, s);
   if (dtype == 1 && search_range == 4) return launch_mma_bf16<4>(c1, c2, out, B, H, W, C, s);
   if (dtype == 1 && search_range == 2) return launch_mma_bf16<2>(c1, c2, out, B, H, W, C, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The gradients of fisr_cost_volume for the output gradient g [B, H, W,
+// (2d+1)^2], contiguous, of the inputs' type: dc1 and dc2 [B, H, W, C]. A null
+// dc1 or dc2 is not computed. dtype and search_range as for fisr_cost_volume.
+extern "C" int fisr_cost_volume_backward(const void* c1, const void* c2, const void* g,
+                                         void* dc1, void* dc2, int B, int H, int W, int C,
+                                         int search_range, int dtype, void* stream) {
+  if (B < 1 || H < 1 || W < 1 || C < 1 || H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && search_range == 4)
+    return launch_bwd<4, float>(c1, c2, g, dc1, dc2, B, H, W, C, s);
+  if (dtype == 0 && search_range == 2)
+    return launch_bwd<2, float>(c1, c2, g, dc1, dc2, B, H, W, C, s);
+  if (dtype == 1 && search_range == 4)
+    return launch_bwd<4, __nv_bfloat16>(c1, c2, g, dc1, dc2, B, H, W, C, s);
+  if (dtype == 1 && search_range == 2)
+    return launch_bwd<2, __nv_bfloat16>(c1, c2, g, dc1, dc2, B, H, W, C, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

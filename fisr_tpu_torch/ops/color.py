@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["yuv2rgb_matlab", "rgb2yuv_matlab", "yuv2rgb_matlab_u8"]
+__all__ = ["yuv2rgb_matlab", "rgb2yuv_matlab", "yuv2rgb_matlab_u8", "yuv2rgb_float"]
 
 # MATLAB ycbcr2rgb inverse matrix (reference utils.py:107), rows R, G, B.
 _TINV = np.array(
@@ -37,6 +37,21 @@ _T_FWD = np.array(
 _M_RGB2YUV = (_T_FWD / 255.0).astype(np.float32)
 _B_RGB2YUV = _OFFSET_YUV.astype(np.float32)
 
+# The reference's other YUV -> RGB (utils.py:94-103): the MATLAB matrix
+# multiplied out into float constants, not clipped. No caller in the port; kept
+# beside the MATLAB one as the JAX package keeps it.
+_M_YUV2RGB_FLOAT = np.array(
+    [
+        [1.0, -0.000007154783816076815, 1.4019975662231445],
+        [1.0, -0.3441331386566162, -0.7141380310058594],
+        [1.0, 1.7720025777816772, 0.00001542569043522235],
+    ],
+    dtype=np.float32,
+)
+_B_YUV2RGB_FLOAT = np.array(
+    [179.45477266423404, -135.45870971679688, 226.8183044444304], np.float32
+)
+
 
 def _apply_3x3(x: torch.Tensor, m: np.ndarray, b: np.ndarray, sign: float) -> torch.Tensor:
     """out[..., r] = sum_c m[r, c] * x[..., c] + sign * b[r], in f32."""
@@ -54,6 +69,12 @@ def yuv2rgb_matlab(yuv: torch.Tensor, clip: bool = True) -> torch.Tensor:
     """MATLAB-equivalent YUV([0,255]) -> RGB([0,255])."""
     rgb = _apply_3x3(yuv, _M_YUV2RGB, _B_YUV2RGB, -1.0)
     return rgb.clamp(0.0, 255.0) if clip else rgb
+
+
+def yuv2rgb_float(yuv: torch.Tensor) -> torch.Tensor:
+    """YUV([0,255]) -> RGB with the float constants of utils.py:94-103,
+    unclipped (unlike yuv2rgb_matlab)."""
+    return _apply_3x3(yuv, _M_YUV2RGB_FLOAT, _B_YUV2RGB_FLOAT, -1.0)
 
 
 def rgb2yuv_matlab(rgb: torch.Tensor, clip: bool = True) -> torch.Tensor:

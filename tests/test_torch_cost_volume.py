@@ -2,11 +2,16 @@
 package (XLA composition and the Pallas kernel in interpret mode).
 
 Measured max |diff| on these inputs (f32, CPU): forward 1.8e-7, gradient
-1.9e-6; bound atol 1e-5, as the JAX package's own kernel tests.
+1.9e-6; bound atol 1e-5, as the JAX package's own kernel tests. The plain
+backward (`cost_volume_backward`, the backward kernel's plain version) on
+uniform [-1, 1) inputs: against autograd of `cost_volume` 4.8e-7 (bound
+1e-6), against jax.vjp of the XLA composition and of the Pallas kernel 1e-5.
 
-The bf16 kernel's index map (8-pixel tiles against 16-pixel c2 windows, the
-band's diagonals) is emulated in plain PyTorch and held against the plain
-version here; the kernel itself runs in the `cuda`-marked tests.
+The index maps of the kernels (the bf16 kernel's 8-pixel tiles against
+16-pixel c2 windows; the f32 kernel's staged rows, pixel groups and channel
+split over a cluster; the backward's gathered tiles) are emulated in plain
+PyTorch and held against the plain version here; the kernels themselves run
+in the `cuda`-marked tests.
 """
 
 import numpy as np
@@ -21,9 +26,10 @@ from fisr_tpu.ops.cost_volume import cost_volume as jax_cost_volume
 from fisr_tpu_torch.kernels import build
 from fisr_tpu_torch.kernels import cost_volume as kernel
 from fisr_tpu_torch.models import pwcnet
-from fisr_tpu_torch.ops.cost_volume import cost_volume
+from fisr_tpu_torch.ops.cost_volume import cost_volume, cost_volume_backward
 
 torch.set_num_threads(1)
+BWD_SHAPES = [(1, 1, 1, 1), (2, 3, 3, 5), (2, 4, 7, 196), (2, 9, 53, 12)]
 
 
 def _pair(seed, shape):
@@ -106,6 +112,64 @@ ptxas info    : Used 72 registers, used 1 barriers, 8 bytes cumulative stack siz
     assert build.ptxas_report("") == []
 
 
+# ---- the backward's plain version --------------------------------------------
+
+def _uniform(seed, shape, d):
+    """c1, c2 [shape] and an output gradient, uniform in [-1, 1)."""
+    rng = np.random.default_rng(seed)
+    g_shape = tuple(shape[:3]) + ((2 * d + 1) ** 2,)
+    return tuple(rng.uniform(-1, 1, size=s).astype(np.float32) for s in (shape, shape, g_shape))
+
+
+@pytest.mark.parametrize("d", [2, 4])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_plain_backward_matches_autograd(shape, d):
+    a, b, g = (torch.from_numpy(x) for x in _uniform(6, shape, d))
+    ta, tb = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    want = torch.autograd.grad(cost_volume(ta, tb, d), (ta, tb), g)
+    got = cost_volume_backward(a, b, g, d)
+    for x, y in zip(got, want):
+        assert x.shape == y.shape and x.dtype == torch.float32
+        torch.testing.assert_close(x, y, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("d", [2, 4])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_plain_backward_matches_jax_vjp(shape, d):
+    a, b, g = _uniform(7, shape, d)
+    got = cost_volume_backward(*(torch.from_numpy(x) for x in (a, b, g)), d)
+    for fn in (lambda x, y: jax_cost_volume(x, y, d),
+               lambda x, y: cost_volume_pallas(x, y, d, interpret=True)):
+        _, vjp = jax.vjp(fn, jnp.asarray(a), jnp.asarray(b))
+        for x, y in zip(got, vjp(jnp.asarray(g))):
+            np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape,d", [((2, 9, 53, 12), 4), ((2, 4, 7, 196), 2)])
+def test_plain_backward_bf16_within_one_ulp_of_autograd(shape, d):
+    a, b, g = (torch.from_numpy(x).bfloat16() for x in _uniform(8, shape, d))
+    ta, tb = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    want = torch.autograd.grad(cost_volume(ta, tb, d), (ta, tb), g)
+    got = cost_volume_backward(a, b, g, d)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype == torch.bfloat16
+        x, y = x.float(), y.float()
+        assert ((x - y).abs() <= 1e-6 + 2.0**-7 * y.abs()).all()
+
+
+def test_cpu_autograd_never_reaches_the_backward_kernel():
+    a, b, g = (torch.from_numpy(x) for x in _uniform(9, (1, 5, 7, 3), 4))
+    ta, tb = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    before = (kernel.BACKWARD_LAUNCHES, dict(kernel.BACKWARD_LAUNCHES_BY_VARIANT))
+    grads = torch.autograd.grad(kernel.cost_volume(ta, tb, 4), (ta, tb), g)
+    for x, y in zip(grads, cost_volume_backward(a, b, g, 4)):
+        torch.testing.assert_close(x, y, rtol=0, atol=1e-6)
+    assert (kernel.BACKWARD_LAUNCHES, kernel.BACKWARD_LAUNCHES_BY_VARIANT) == before
+    assert set(kernel.BACKWARD_LAUNCHES_BY_VARIANT) == {"bwd_f32", "bwd_bf16"}
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.cost_volume_backward_cuda(a, b, g, 4)
+
+
 # ---- the tensor-core kernel's index map, emulated ----------------------------
 
 def _banded_cost_volume(c1, c2, d, tile=8, window=16):
@@ -147,6 +211,146 @@ def test_banded_tile_product_matches_plain(shape, d):
     want = cost_volume(a, b, d)
     assert got.shape == want.shape
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+# ---- the f32 kernel's index map, emulated ------------------------------------
+
+FR, FTX, FKC, FS, FMAX_SPLIT = 8, 16, 16, 20, 8  # csrc/cost_volume.cu, f32 kernel
+H100_SMS = 132
+
+
+def _fma_split(tiles, passes, sms=H100_SMS):
+    """launch_fma_f32's channel split: blocks of a cluster on one tile."""
+    split = 1
+    while split < FMAX_SPLIT and tiles * split < 2 * sms and passes >= 2 * split:
+        split *= 2
+    return split
+
+
+def _fma_tiled_cost_volume(c1, c2, d, sms=H100_SMS):
+    """The cost volume the way the f32 kernel takes it: tiles of FR rows x FTX
+    pixels; per channel pass of FKC, the staged buffers (c2 rows y0-d ..
+    y0+FR-1+d of FTX+2d pixels plus one of padding, c1 rows of FTX pixels plus
+    one, zeros outside the frame and beyond C); thread (dy index i, row r,
+    pixels 4g+j) sums c1 staged pixel 4g+j against c2 staged pixel 4g+j+k of
+    staged row r+i; the passes split over `split` ranks, whose partial tiles
+    are added in rank order, times 1/C, cropped to the frame."""
+    b, h, w, c = c1.shape
+    n = 2 * d + 1
+    tiles_y, tiles_x = -(-h // FR), -(-w // FTX)
+    passes = -(-c // FKC)
+    split = _fma_split(tiles_y * tiles_x * b, passes, sms)
+    out = torch.zeros(b, h, w, n * n)
+    # the frame inside zeros: the kernel's zero-filled copies outside it and
+    # beyond C (the staged rows' padding pixel is never read)
+    cp = passes * FKC
+    c2p = torch.zeros(b, tiles_y * FR + 2 * d, tiles_x * FTX + 2 * d + 1, cp)
+    c2p[:, d:d + h, d:d + w, :c] = c2
+    c1p = torch.zeros(b, tiles_y * FR, tiles_x * FTX + 1, cp)
+    c1p[:, :h, :w, :c] = c1
+    for bb in range(b):
+        for ty in range(tiles_y):
+            for tx in range(tiles_x):
+                y0, x0 = ty * FR, tx * FTX
+                tile = torch.zeros(FR, FTX, n * n)
+                for rank in range(split):
+                    part = torch.zeros(FR, FTX, n, n)
+                    for p in range(rank * passes // split, (rank + 1) * passes // split):
+                        c0 = p * FKC
+                        kc = -(-min(FKC, c - c0) // 4) * 4
+                        c2s = c2p[bb, y0:y0 + FR + 2 * d, x0:x0 + FTX + 2 * d + 1, c0:c0 + kc]
+                        c1s = c1p[bb, y0:y0 + FR, x0:x0 + FTX + 1, c0:c0 + kc]
+                        for i in range(n):
+                            for k in range(n):
+                                part[:, :, i, k] += (c1s[:, :FTX]
+                                                     * c2s[i:i + FR, k:k + FTX]).sum(-1)
+                    tile += part.reshape(FR, FTX, n * n)
+                rows, cols = min(FR, h - y0), min(FTX, w - x0)
+                out[bb, y0:y0 + rows, x0:x0 + cols] = (tile * (1.0 / c))[:rows, :cols]
+    return out, split
+
+
+@pytest.mark.parametrize("shape,d,split", [
+    ((2, 9, 53, 12), 4, 1), ((1, 7, 13, 3), 2, 1), ((1, 1, 1, 1), 4, 1),
+    ((2, 4, 7, 196), 4, 8),    # 13 passes over a cluster of 8: 2 or 1 a rank
+    ((1, 6, 70, 40), 2, 2),    # 3 passes over 2 ranks; W over five tiles
+    ((1, 9, 17, 20), 4, 2),    # W and H one past a tile; passes of 16 and 4, one a rank
+    ((1, 3, 5, 2), 4, 1)])     # W below the tile and near d
+def test_fma_tile_map_matches_plain(shape, d, split):
+    a, b = (torch.from_numpy(x) for x in _pair(10, shape))
+    got, used = _fma_tiled_cost_volume(a, b, d)
+    assert used == split
+    torch.testing.assert_close(got, cost_volume(a, b, d), rtol=0, atol=1e-5)
+
+
+def test_fma_split_fills_the_card_at_the_inference_levels():
+    """The 1024x1920 window's levels (x2 upscale, B=2): the small levels split
+    their passes so that they launch two blocks an SM, or as near as a
+    cluster of 8 takes them (level 6: 32 tiles x 8 = 256 blocks for 132 SMs)."""
+    splits = {}
+    for lvl, c in {2: 32, 3: 64, 4: 96, 5: 128, 6: 196}.items():
+        h, w = 2048 >> lvl, 3840 >> lvl
+        tiles = 2 * -(-h // FR) * -(-w // FTX)
+        splits[lvl] = _fma_split(tiles, -(-c // FKC))
+        assert tiles * splits[lvl] >= 2 * H100_SMS or splits[lvl] == FMAX_SPLIT
+        assert tiles * splits[lvl] >= 256
+    assert splits == {2: 1, 3: 1, 4: 1, 5: 4, 6: 8}
+
+
+# ---- the backward kernel's gathered tiles, emulated --------------------------
+
+BTX, BKC = 32, 32  # csrc/cost_volume.cu, backward kernel
+
+
+def _gathered_backward(c1, c2, g, d):
+    """Both gradients the way the backward kernel takes them: a tile is BTX
+    pixels x BKC channels of one row of one gradient; for each dy index i it
+    stages the gathered input's row (BTX+2d pixels from x0-d; c2 row y+i-d for
+    dc1, c1 row y-(i-d) for dc2) and g's 2d+1 values of that dy times 1/C (g's
+    row y for dc1, y-(i-d) for dc2); output pixel p sums, over dx index j,
+    g staged pixel s times input staged pixel t: s = p+d, t = p+j for dc1;
+    s = t = p+2d-j for dc2."""
+    b, h, w, c = c1.shape
+    n = 2 * d + 1
+    pw = BTX + 2 * d
+    grads = []
+    for which, src in ((0, c2), (1, c1)):
+        dst = torch.zeros(b, h, w, c)
+        for bb in range(b):
+            for y in range(h):
+                for x0 in range(0, w, BTX):
+                    for c0 in range(0, c, BKC):
+                        acc = torch.zeros(BTX, BKC)
+                        for i in range(n):
+                            sy = y + i - d if which == 0 else y - (i - d)
+                            gy = y if which == 0 else sy
+                            xs, gs = torch.zeros(pw, BKC), torch.zeros(pw, n)
+                            lo, hi = max(0, d - x0), min(pw, w - x0 + d)
+                            if 0 <= sy < h and lo < hi:
+                                run = src[bb, sy, x0 - d + lo:x0 - d + hi, c0:c0 + BKC]
+                                xs[lo:hi, :run.shape[1]] = run
+                            if 0 <= gy < h and lo < hi:
+                                gs[lo:hi] = g[bb, gy, x0 - d + lo:x0 - d + hi,
+                                              i * n:(i + 1) * n] * (1.0 / c)
+                            p = torch.arange(BTX)
+                            for j in range(n):
+                                s = p + d if which == 0 else p + 2 * d - j
+                                t = p + j if which == 0 else s
+                                acc += gs[s, j, None] * xs[t]
+                        cols, chans = min(BTX, w - x0), min(BKC, c - c0)
+                        dst[bb, y, x0:x0 + cols, c0:c0 + chans] = acc[:cols, :chans]
+        grads.append(dst)
+    return tuple(grads)
+
+
+@pytest.mark.parametrize("shape,d", [((2, 9, 53, 12), 4), ((1, 7, 13, 3), 2),
+                                     ((1, 1, 1, 1), 4), ((1, 2, 5, 70), 2),
+                                     ((1, 3, 33, 33), 4)])
+def test_backward_gather_map_matches_plain(shape, d):
+    a, b, g = (torch.from_numpy(x) for x in _uniform(11, shape, d))
+    got = _gathered_backward(a, b, g, d)
+    for x, y in zip(got, cost_volume_backward(a, b, g, d)):
+        torch.testing.assert_close(x, y, rtol=0, atol=1e-6)
 
 
 # ---- on the card: the kernel against its plain version -----------------------
@@ -223,3 +427,91 @@ def test_launch_counts_by_variant_on_card(cuda_device, dtype, variant):
     want = {k: v + (k == variant) for k, v in before.items()}
     assert kernel.LAUNCHES_BY_VARIANT == want
     assert kernel.LAUNCHES == total + 1
+
+
+# ---- on the card: the backward kernel against its plain version --------------
+
+def _card_triple(device, seed, shape, d, dtype):
+    g = torch.Generator(device=device).manual_seed(seed)
+    a = torch.randn(shape, device=device, generator=g).to(dtype)
+    b = torch.randn(shape, device=device, generator=g).to(dtype)
+    grad = torch.randn(tuple(shape[:3]) + ((2 * d + 1) ** 2,), device=device, generator=g)
+    return a, b, grad.to(dtype)
+
+
+def _assert_backward_close(got, want, dtype):
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype == dtype
+        x, y = x.float(), y.float()
+        if dtype == torch.float32:
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+        else:  # one bf16 rounding of f32 sums taken in another order
+            assert ((x - y).abs() <= 1e-5 + 2.0**-7 * y.abs()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,d", [((1, 1, 1, 1), 4), ((2, 37, 53, 3), 2),
+                                     ((2, 37, 53, 3), 4), ((2, 9, 131, 196), 4),
+                                     ((1, 5, 40, 20), 4), ((8, 4, 7, 196), 4),
+                                     ((4, 48, 48, 32), 4)])
+def test_backward_kernel_matches_plain_on_card(cuda_device, dtype, shape, d):
+    a, b, g = _card_triple(cuda_device, 4, shape, d, dtype)
+    got = kernel.cost_volume_backward_cuda(a, b, g, d)
+    want = cost_volume_backward(a, b, g, d)
+    torch.cuda.synchronize()
+    _assert_backward_close(got, want, dtype)
+    # through autograd: the kernel's forward and backward, one gradient asked for
+    ta = a.clone().requires_grad_(True)
+    (only,) = torch.autograd.grad(kernel.cost_volume_cuda(ta, b, d), (ta,), g)
+    assert torch.equal(only, got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_is_deterministic_on_card(cuda_device, dtype):
+    a, b, g = _card_triple(cuda_device, 5, (2, 9, 131, 196), 4, dtype)
+    first = kernel.cost_volume_backward_cuda(a, b, g, 4)
+    second = kernel.cost_volume_backward_cuda(a, b, g, 4)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_handle_unaligned_views_on_card(cuda_device, dtype):
+    """Contiguous views that start one element into their storage: the f32
+    forward takes its 4-byte copies, and the backward reads them as they are;
+    a non-contiguous output gradient is made contiguous by the wrapper."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    shape = (1, 6, 20, 32)
+    n = 6 * 20 * 32
+    a, b = (torch.randn(n + 1, device=cuda_device, generator=gen).to(dtype)[1:].view(shape)
+            for _ in range(2))
+    assert a.is_contiguous() and a.data_ptr() % 16 != 0
+    got = kernel.cost_volume_cuda(a, b, 4).float()
+    want = cost_volume(a, b, 4).float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert ((got - want).abs() <= 1e-5 + 2.0**-7 * want.abs()).all()
+    g = torch.randn((1, 6, 81, 20), device=cuda_device, generator=gen).to(dtype).transpose(2, 3)
+    assert not g.is_contiguous()
+    _assert_backward_close(kernel.cost_volume_backward_cuda(a, b, g, 4),
+                           cost_volume_backward(a, b, g, 4), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "bwd_bf16"),
+                                           (torch.float32, "bwd_f32")])
+def test_backward_launch_counts_by_variant_on_card(cuda_device, dtype, variant):
+    a = torch.ones((1, 4, 8, 16), device=cuda_device, dtype=dtype, requires_grad=True)
+    b = torch.ones((1, 4, 8, 16), device=cuda_device, dtype=dtype, requires_grad=True)
+    out = kernel.cost_volume_cuda(a, b, 4)
+    forward, by_variant = kernel.LAUNCHES, dict(kernel.LAUNCHES_BY_VARIANT)
+    before, total = dict(kernel.BACKWARD_LAUNCHES_BY_VARIANT), kernel.BACKWARD_LAUNCHES
+    out.sum().backward()
+    want = {k: v + (k == variant) for k, v in before.items()}
+    assert kernel.BACKWARD_LAUNCHES_BY_VARIANT == want
+    assert kernel.BACKWARD_LAUNCHES == total + 1
+    # backward launches are not forward launches
+    assert (kernel.LAUNCHES, kernel.LAUNCHES_BY_VARIANT) == (forward, by_variant)

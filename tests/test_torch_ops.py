@@ -233,6 +233,17 @@ def test_color_matches_jax():
     np.testing.assert_array_equal(color.yuv2rgb_matlab_u8(u8), jcolor.yuv2rgb_matlab_u8(u8))
 
 
+def test_yuv2rgb_float_matches_jax():
+    """The reference's float-constant YUV -> RGB, unclipped: values outside
+    [0, 255] come out as they are."""
+    x = np.random.default_rng(14).uniform(-20, 275, size=(3, 4, 6, 3)).astype(np.float32)
+    got = color.yuv2rgb_float(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jcolor.yuv2rgb_float(jnp.asarray(x))),
+                               rtol=0, atol=1e-6)
+    assert got.min() < 0 or got.max() > 255
+    assert "yuv2rgb_float" in color.__all__
+
+
 def test_warp_matches_jax_taps_and_patch():
     img = _x(12, (2, 9, 11, 4))
     flow = _x(13, (2, 9, 11, 2), scale=4.0)
@@ -351,7 +362,8 @@ def test_cuda_device_raises_without_a_card(monkeypatch, tmp_path):
 
 SCRIPTS = [os.path.join(ROOT, "chip_smoke.py"),
            os.path.join(ROOT, "scripts", "profile_torch_video.py"),
-           os.path.join(ROOT, "scripts", "time_torch_pipeline.py")]
+           os.path.join(ROOT, "scripts", "time_torch_pipeline.py"),
+           os.path.join(ROOT, "scripts", "time_cost_volume_variants.py")]
 
 
 def _port_files():

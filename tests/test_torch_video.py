@@ -235,8 +235,9 @@ def test_cli_video_phase(tmp_path, full_pwc_trees):
     tiled = run("tiled", "--fused", "--fisr_grid", "1,2")
     np.testing.assert_array_equal(tiled, np.stack([read_png(p) for p in want]))
     run("auto", "--fused", "--fisr_grid", "auto")
+    # no weights anywhere: no flag, no checkpoint under --checkpoint_dir
     with pytest.raises(SystemExit, match="weights"):
-        main(base + ["--fused"])
+        main(base + ["--fused", "--checkpoint_dir", str(tmp_path / "no_ckpt")])
     with pytest.raises(NotImplementedError, match="item 5"):
         main(base + weights + ["--fused", "--fisr_grid", "tuned"])
     # the train phase is ported: it gets as far as reading its corpus
