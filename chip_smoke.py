@@ -26,6 +26,20 @@ Phases (any failure raises and exits non-zero):
    flow_upscale=2: 6 outputs of 2048x3840, 15 cost-volume launches
    (3 pairs x 5 levels, all of the bf16 variant), timed on its first call and
    again warm; then per-pair and per-window times and peak memory.
+   serve  - the serving CLI's service (cli/serve.build_service at its
+   defaults: 1024x1920, bf16, fisr_grid 'auto', flow_scale 2, the generator's
+   full-width weights) behind infer/daemon.make_server on the loopback, over
+   urllib: /healthz, /v1/info, /metrics, 401 without the bearer token, 413
+   for an announced body over the limit, 400 for a wrong frame size; one
+   /v1/window (10 launches, equal to FISRService.window, within 1 u8 count of
+   the fused step quantized by hand); one stream of 4 frames (202, 202, 200,
+   200; 3 pair stages; 5 launches a steady frame; its first window within the
+   JAX test's bounds of /v1/window); one ?colorspace=rgb window against
+   yuv2rgb_matlab_u8 of the YUV one. Times with their spread: the service's
+   window and steady stream frame (median of 5), the HTTP round trips with
+   PNG encode and decode (median of 3); the warm-up's memory checks; the
+   peak. Then a sweep of (1, 1), (2, 2), (4, 6) into a tune cache in a
+   temporary directory, and fisr_grid 'tuned' must resolve to its winner.
 5. tiled  - the window stage at full width under fisr_grid None, 'auto'
    (must resolve to (4, 6), pad (0, 0)) and (2, 2): shape, finiteness, ms per
    window and peak memory of each plan (nothing is asserted about which is
@@ -77,7 +91,9 @@ Phases (any failure raises and exits non-zero):
    and peak memory.
 
 Prints the card's name and power limit, a {"kernels": [...]} line (the
-bf16 and f32 forward kernels and the backward kernel), and as its last line {"ok": true, "device": {...}}. Without a CUDA device it exits
+bf16 and f32 forward kernels and the backward kernel; the bf16 entry's
+`launches_serve` counts a /v1/window and a steady stream frame), and as its
+last line {"ok": true, "device": {...}}. Without a CUDA device it exits
 with 1 and prints no result.
 """
 
@@ -439,6 +455,192 @@ def phase_full(fisr, pwc, tmp):
     log(f"[full] bf16 {h}x{w}: per pair {pair_ms:.3f} ms, per window (FISRnet stage) "
         f"{window_ms:.3f} ms, steady state {pair_ms + window_ms:.3f} ms per output window")
     return launches, folder
+
+
+def spread_ms(seconds):
+    """{median, min, max} of a list of seconds, in ms."""
+    ms = 1e3 * np.asarray(seconds)
+    return {"median_ms": float(np.median(ms)), "min_ms": float(ms.min()),
+            "max_ms": float(ms.max()), "n": len(ms)}
+
+
+def u8_diff(a, b):
+    d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    return int(d.max()), float(d.mean())
+
+
+def phase_serve(tmp):
+    """The serving CLI's service at its defaults behind the HTTP server,
+    driven over the loopback; then a short tune into a cache at `tmp`."""
+    import socket
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from fisr_tpu_torch.cli import serve
+    from fisr_tpu_torch.infer import autotune
+    from fisr_tpu_torch.infer.daemon import _yuv_from, pack_frames, unpack_frames
+    from fisr_tpu_torch.infer.video import make_fused_video_step, resolve_fisr_plan
+    from fisr_tpu_torch.kernels import cost_volume as kernel
+    from fisr_tpu_torch.ops.color import yuv2rgb_matlab_u8
+    from fisr_tpu_torch.ops.conv import BF16
+
+    h, w = WINDOW
+    token = "smoke-token"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    args = serve.build_parser().parse_args(
+        ["--height", str(h), "--width", str(w), "--deterministic_weights", "--host", "127.0.0.1",
+         "--port", "0", "--auth_token", token])
+    if (args.dtype, args.fisr_grid, args.flow_scale) != ("bfloat16", "auto", 2):
+        raise AssertionError(f"serving defaults changed: {args}")
+    t0 = time.perf_counter()
+    service = serve.build_service(args)
+    for stage, info in service.memory_checks.items():
+        log(f"[serve] warm-up {stage}: need {info['need_bytes'] / 2**30:.3f} GiB, limit "
+            f"{info['limit_bytes'] / 2**30:.3f} GiB, budget {info['budget_bytes'] / 2**30:.3f} GiB")
+    log(f"[serve] weights, bf16 cast and warm-up: {time.perf_counter() - t0:.2f} s")
+    server = serve.make_http_server(service, args)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{port}"
+
+    def call(path, payload=None, method=None, auth=True):
+        headers = {"Authorization": f"Bearer {token}"} if auth else {}
+        req = urllib.request.Request(url + path, data=payload, method=method, headers=headers)
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    def expect(what, got, want):
+        if got != want:
+            raise AssertionError(f"[serve] {what}: got {got}, want {want}")
+
+    try:
+        # the smaller requests
+        code, body = call("/healthz", auth=False)
+        expect("/healthz", (code, json.loads(body)), (200, {"status": "ok"}))
+        expect("/v1/info without the token", call("/v1/info", auth=False)[0], 401)
+        code, body = call("/v1/info")
+        info = json.loads(body)
+        expect("/v1/info", (code, info["frame"], info["dtype"], info["fisr_grid"], info["device"]),
+               (200, [h, w], "bfloat16", "auto", torch.cuda.get_device_name(0)))
+        code, body = call("/metrics")
+        expect("/metrics", (code, "fisr_windows_total 0" in body.decode()), (200, True))
+        with socket.create_connection(("127.0.0.1", port), timeout=30) as s:
+            # a body over the limit is refused before it is sent
+            s.sendall((f"POST /v1/window HTTP/1.1\r\nHost: x\r\nAuthorization: Bearer {token}"
+                       f"\r\nContent-Length: {args.max_request_bytes + 1}\r\n\r\n").encode())
+            expect("oversized body", s.recv(4096)[:12], b"HTTP/1.1 413")
+        code, body = call("/v1/window", pack_frames(list(synthetic_frames(3, 32, 64))))
+        expect("wrong frame size", (code, b"compiled for" in body), (400, True))
+
+        # one window: 2 pairs x 5 levels
+        frames = list(synthetic_frames(4, h, w, seed=3))
+        reset_launches(kernel)
+        code, body = call("/v1/window", pack_frames(frames[:3]))
+        expect("/v1/window", code, 200)
+        require_launches(kernel, "/v1/window", want=10)
+        launches = {"window": kernel.LAUNCHES}
+        window = unpack_frames(body)
+        for a, b in zip(window, service.window(frames[:3])):
+            if a.shape != (2 * h, 2 * w, 3) or not np.array_equal(a, b):
+                raise AssertionError("[serve] /v1/window differs from FISRService.window")
+        step = make_fused_video_step(service.pwc_params.cfg, BF16, 2, 2, "auto")
+        with torch.inference_mode():
+            stack = torch.stack([torch.from_numpy(f).cuda().float() for f in frames[:3]])[None]
+            pred = step(service.fisr_params, service.pwc_params, stack)[0]
+            hand = torch.round(pred.float() * 255).clamp(0, 255).to(torch.uint8).cpu().numpy()
+        hand_diff = [u8_diff(a, hand[..., 3 * s:3 * s + 3]) for s, a in enumerate(window)]
+        if max(d[0] for d in hand_diff) > 1:
+            raise AssertionError(f"[serve] /v1/window vs the fused step: {hand_diff}")
+
+        # one stream of 4 frames: 202, 202, then a window a frame, 1 pair each
+        pairs0 = service.stats["pair_programs"]
+        codes, outs = [], []
+        for f in frames:
+            reset_launches(kernel)
+            code, body = call("/v1/stream/smoke/frame", pack_frames([f]))
+            codes.append(code)
+            outs.append(unpack_frames(body) if code == 200 else None)
+        require_launches(kernel, "a steady stream frame", want=5)
+        launches["stream_frame"] = kernel.LAUNCHES
+        expect("stream codes", codes, [202, 202, 200, 200])
+        expect("pair stages for 4 stream frames", service.stats["pair_programs"] - pairs0, 3)
+        stream_diff = [u8_diff(a, b) for a, b in zip(outs[2], window)]
+        if max(d[0] for d in stream_diff) > 1 or max(d[1] for d in stream_diff) >= 0.02:
+            raise AssertionError(f"[serve] stream vs /v1/window: {stream_diff}")
+        code, body = call("/v1/stream/smoke", method="DELETE")
+        expect("DELETE", (code, json.loads(body)["dropped"]), (200, True))
+
+        # the colour edge
+        rgb = [yuv2rgb_matlab_u8(f) for f in frames[:3]]
+        code, body = call("/v1/window?colorspace=rgb", pack_frames(rgb))
+        want = [yuv2rgb_matlab_u8(o) for o in service.window(_yuv_from(rgb, "rgb"))]
+        expect("rgb window", code, 200)
+        if not all(np.array_equal(a, b) for a, b in zip(unpack_frames(body), want)):
+            raise AssertionError("[serve] rgb window differs from yuv2rgb_matlab_u8 of the YUV one")
+        log(f"[serve] /healthz, /v1/info, /metrics, 401, 413, 400 as expected; /v1/window "
+            f"{launches['window']} launches, equal to FISRService.window, vs the fused step "
+            f"(max, mean u8) {hand_diff}; stream 202, 202, 200, 200, 3 pairs, "
+            f"{launches['stream_frame']} launches a steady frame, first window vs /v1/window "
+            f"{stream_diff}; rgb window equal")
+
+        # times: the service (host clock around calls that end in a download)
+        # and the HTTP round trip (client PNG encode, post, server work, decode)
+        def timed_calls(fn, reps):
+            ts = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                ts.append(time.perf_counter() - t0)
+            return ts
+
+        service.window(frames[:3])
+        for f in frames[:3]:
+            service.stream_frame("steady", f)
+        times = {
+            "window": spread_ms(timed_calls(lambda: service.window(frames[:3]), 5)),
+            "stream_frame": spread_ms(timed_calls(
+                lambda: service.stream_frame("steady", frames[3]), 5)),
+            "http_window": spread_ms(timed_calls(
+                lambda: unpack_frames(call("/v1/window", pack_frames(frames[:3]))[1]), 3)),
+            "http_stream_frame": spread_ms(timed_calls(
+                lambda: unpack_frames(call("/v1/stream/steady/frame", pack_frames(frames[3:]))[1]),
+                3)),
+        }
+        service.drop_stream("steady")
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        for k, v in times.items():
+            log(f"[serve] {k}: median {v['median_ms']:.2f} ms (min {v['min_ms']:.2f}, max "
+                f"{v['max_ms']:.2f}, n {v['n']})")
+        log(f"[serve] peak {peak_gib:.2f} GiB")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+
+    # tune: a short sweep into a cache at tmp, then 'tuned' resolves to its winner
+    cache = autotune.TuneCache(os.path.join(tmp, "autotune.json"), device="cuda")
+    cache.tune(service.fisr_params, h, w, policy=BF16, reps=3, grids=[(1, 1), (2, 2), (4, 6)])
+    plan = cache.best_plan(h, w, "bfloat16")
+    with open(cache.path) as f:
+        (entry,) = json.load(f).values()
+    table = entry["results"]
+    default_path = autotune.DEFAULT_CACHE_PATH
+    autotune.DEFAULT_CACHE_PATH = cache.path
+    try:
+        tuned = resolve_fisr_plan("tuned", h, w, BF16, device="cuda")
+    finally:
+        autotune.DEFAULT_CACHE_PATH = default_path
+    expect("'tuned' plan", tuned, plan)
+    log(f"[serve] sweep (bf16 {h}x{w}, reps 3): "
+        + ", ".join(f"{tuple(r['grid'])} {1e3 * r['sec']:.2f} ms" for r in table)
+        + f"; 'tuned' resolves to {tuned}")
+    return {"launches": launches, "times": times, "peak_gib": peak_gib, "sweep": table}
 
 
 def phase_tiled(fisr, pwc, frames_u8):
@@ -1127,6 +1329,7 @@ def main() -> int:
     timed(phase_small, fisr, pwc)
     with tempfile.TemporaryDirectory() as tmp:
         launches, folder = timed(phase_full, fisr, pwc, tmp)
+        served = timed(phase_serve, tmp)
         timed(phase_tiled, fisr, pwc, synthetic_frames(4, *WINDOW))
         launches_staged = timed(phase_staged, fisr, pwc, folder, tmp)
         timed(phase_eval, fisr, tmp)
@@ -1145,6 +1348,8 @@ def main() -> int:
         "source": "fisr_tpu_torch/csrc/cost_volume.cu",
         "replaces": "fisr_tpu/kernels/cost_volume_pallas.py:34",
         "launches": launches, "launches_staged": launches_staged,
+        # per request of the serving phase: a /v1/window, a steady stream frame
+        "launches_serve": served["launches"],
         # per training step: make_pwc_train_step, make_joint_train_step
         "launches_train": {"pwc_train_step": launches_pwc_train, "joint_step": launches_joint},
         # over the inference window's level shapes, the ragged shapes and the

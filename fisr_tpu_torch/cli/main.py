@@ -131,7 +131,8 @@ def parse_args(argv=None):
     p.add_argument("--fisr_grid", type=str, default="full",
                    help="FISRnet tiling of the fused window stage: 'full' (no tiling, the "
                         "reference's video phase), 'auto' (infer/device.padded_grid), "
-                        "'tuned' (autotune cache: not ported, raises) or 'GH,GW'")
+                        "'tuned' (this card's plan in the autotune cache, see "
+                        "`python -m fisr_tpu_torch.cli.tune`; 'auto' where untuned) or 'GH,GW'")
 
     # weights and device
     p.add_argument("--fisr_params_npz", type=str, default=None,
@@ -159,9 +160,11 @@ def _model_dir(args) -> str:
 
 
 def _model(args, device, what):
+    """The `what` ('fisr' or 'pwc') model on `device`, from the weight flags
+    in `args` (flags another parser lacks read as unset; cli/serve uses it)."""
     from fisr_tpu_torch.convert import params
 
-    tf_ckpt = getattr(args, f"{what}_tf_ckpt")
+    tf_ckpt = getattr(args, f"{what}_tf_ckpt", None)
     if tf_ckpt:
         raise NotImplementedError(
             f"--{what}_tf_ckpt {tf_ckpt}: reading TF1 checkpoints is not ported yet "
@@ -181,7 +184,7 @@ def _model(args, device, what):
         from fisr_tpu_torch.models.fisrnet import FISRnet
 
         print(" [!] no checkpoint found: using fresh init")
-        return FISRnet(sf=args.scale_factor, device=device)
+        return FISRnet(sf=getattr(args, "scale_factor", 2), device=device)
     raise SystemExit(f"no {what} weights: pass --{what}_params_npz, --pwc_ckpt or "
                      "--deterministic_weights")
 

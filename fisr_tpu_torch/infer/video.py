@@ -34,6 +34,7 @@ from fisr_tpu_torch.data import flo as flo_io
 from fisr_tpu_torch.data import matio
 from fisr_tpu_torch.data.png_io import list_pngs, read_png, write_png
 from fisr_tpu_torch.device import resolve_device
+from fisr_tpu_torch.infer.autotune import TuneCache, dtype_name
 from fisr_tpu_torch.infer.device import best_grid, padded_grid, tiled_apply_padded
 from fisr_tpu_torch.infer.tiled import TiledRunner
 from fisr_tpu_torch.models import fisrnet, pwcnet
@@ -114,33 +115,33 @@ def make_pair_fn(cfg: pwcnet.PWCNetConfig = pwcnet.PWCNetConfig(),
     return fn
 
 
-_TUNED = ("fisr_grid 'tuned' reads the autotune cache, which is not ported yet "
-          "(ROADMAP.md, Queue 1 item 5: infer/autotune.py); pass 'auto' or 'GH,GW'")
-
-
-def resolve_fisr_plan(fisr_grid, h: int, w: int, policy: Policy):
+def resolve_fisr_plan(fisr_grid, h: int, w: int, policy: Policy, device="cuda"):
     """A fisr_grid spec as a concrete ((gh, gw), (pad_h, pad_w)).
 
     'auto'  -> infer/device.padded_grid (target (4, 6); pads an axis by up to
                10 % when that unlocks the target, e.g. 1056 rows -> (4, 6)
                with 96 pad rows);
-    'tuned' -> the autotune cache's winner for this device: not ported, raises;
+    'tuned' -> the autotune cache's winner for `device`'s kind
+               (infer/autotune, `python -m fisr_tpu_torch.cli.tune`), or
+               'auto' where this frame size was never tuned there;
     tuple   -> passed through, pad 0.
     """
     if fisr_grid == "auto":
         return padded_grid(h, w)
     if fisr_grid == "tuned":
-        raise NotImplementedError(_TUNED)
+        plan = TuneCache(device=device).best_plan(h, w, dtype_name(policy))
+        return plan or padded_grid(h, w)
     return tuple(fisr_grid), (0, 0)
 
 
-def resolve_fisr_grid(fisr_grid, h: int, w: int, policy: Policy):
+def resolve_fisr_grid(fisr_grid, h: int, w: int, policy: Policy, device="cuda"):
     """Like `resolve_fisr_plan` but restricted to plans without padding:
-    'auto' is infer/device.best_grid, and the grid always divides (h, w)."""
+    'auto' is infer/device.best_grid, 'tuned' the cache's best pad-free
+    entry; the grid always divides (h, w)."""
     if fisr_grid == "auto":
         return best_grid(h, w)
     if fisr_grid == "tuned":
-        raise NotImplementedError(_TUNED)
+        return TuneCache(device=device).best(h, w, dtype_name(policy)) or best_grid(h, w)
     return tuple(fisr_grid)
 
 
@@ -150,9 +151,10 @@ def _fisr_window_core(model: fisrnet.FISRnet, f0, f1, f2, flows01, warps01,
     """29-channel input assembly + the FISRnet stage for one window.
 
     fisr_grid None runs the whole frame; anything else goes through
-    resolve_fisr_plan and the device tiling. clip_output=False returns the
-    prediction before its clip to [0, 1] (a training loss wants gradients
-    that do not saturate); the serving paths keep the clip.
+    resolve_fisr_plan on the frames' device ('tuned' reads the cache at each
+    call) and the device tiling. clip_output=False returns the prediction
+    before its clip to [0, 1] (a training loss wants gradients that do not
+    saturate); the serving paths keep the clip.
     """
     h, w = f0.shape[1], f0.shape[2]
     img = (torch.cat([f0, f1, f2], dim=-1) / 255.0).clamp(0.0, 1.0)
@@ -162,7 +164,7 @@ def _fisr_window_core(model: fisrnet.FISRnet, f0, f1, f2, flows01, warps01,
     wp = (wp / 255.0).clamp(0.0, 1.0)
     inp = torch.cat([img, fl, wp], dim=-1)  # [B, h, w, 29]
     if fisr_grid is not None:
-        grid, pads = resolve_fisr_plan(fisr_grid, h, w, policy)
+        grid, pads = resolve_fisr_plan(fisr_grid, h, w, policy, device=f0.device)
         pred = tiled_apply_padded(model, inp, grid, pads, 32, sf, policy)
     else:
         pred = fisrnet.apply(model, inp, sf, policy)[2]
@@ -234,8 +236,8 @@ def run_video_pipeline(fisr_model: fisrnet.FISRnet, pwc_model: pwcnet.PWCNet,
     is waited for, so the device works while the host converts colours and
     queues the PNG writes; values and file order are those of the plain
     loop. fisr_grid picks the window stage's tiling plan (None = full frame,
-    the reference's video phase; 'auto' = infer/device.padded_grid; a tuple;
-    'tuned' is not ported and raises). Tiling deviates from full-frame
+    the reference's video phase; 'auto' = infer/device.padded_grid; 'tuned' =
+    the autotune cache's plan for `device`; a tuple). Tiling deviates from full-frame
     through the truncation of the receptive field at the 32-px halo.
 
     fused=False is the staged path: flows and warps of every pair come to

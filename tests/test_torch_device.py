@@ -66,16 +66,19 @@ def test_plans_match_jax(hw):
         assert video.resolve_fisr_grid(spec, h, w, F32) == jvideo.resolve_fisr_grid(spec, h, w, JF32)
 
 
-def test_plans_at_the_video_sizes_and_their_errors():
+def test_plans_at_the_video_sizes_and_their_errors(tmp_path, monkeypatch):
     assert device.padded_grid(1024, 1920) == ((4, 6), (0, 0))
     assert device.padded_grid(1056, 1920) == ((4, 6), (96, 0))
     assert device.best_grid(1056, 1920) == (3, 6)
     for fn in (device.padded_grid, device.best_grid):
         with pytest.raises(ValueError, match="32-multiples"):
             fn(1080, 1920)
-    for fn in (video.resolve_fisr_plan, video.resolve_fisr_grid):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            fn("tuned", 1024, 1920, F32)
+    # 'tuned' where this size was never tuned: the heuristic, as in JAX
+    from fisr_tpu_torch.infer import autotune
+
+    monkeypatch.setattr(autotune, "DEFAULT_CACHE_PATH", str(tmp_path / "none.json"))
+    assert video.resolve_fisr_plan("tuned", 1056, 1920, F32, device="cpu") == ((4, 6), (96, 0))
+    assert video.resolve_fisr_grid("tuned", 1056, 1920, F32, device="cpu") == (3, 6)
 
 
 @pytest.mark.parametrize("spec", ["full", "auto", "tuned", "2,2", "4,6", "1, 3"])

@@ -333,9 +333,126 @@ def test_png_codec_against_pil(tmp_path, seed):
                          + chunk(b"IDAT", zlib.compress(b"".join(rows))) + chunk(b"IEND", b""))
     np.testing.assert_array_equal(np.array(Image.open(filtered)), img)
     np.testing.assert_array_equal(read_png(filtered), img)
+    # greyscale decodes as PIL's convert("RGB"); a 16-bit sample does not decode
     Image.fromarray(img[..., 0]).save(tmp_path / "grey.png")
-    with pytest.raises(ValueError, match="RGB"):
-        read_png(tmp_path / "grey.png")
+    np.testing.assert_array_equal(read_png(tmp_path / "grey.png"),
+                                  np.array(Image.open(tmp_path / "grey.png").convert("RGB")))
+    Image.fromarray(img[..., 0].astype(np.uint16) * 257).save(tmp_path / "grey16.png")
+    with pytest.raises(ValueError, match="8-bit"):
+        read_png(tmp_path / "grey16.png")
+
+
+def _filtered_png(img: np.ndarray, ftypes) -> bytes:
+    """An 8-bit PNG of `img` ([H, W, C], C in 1, 3, 4) whose row y is
+    filtered with ftypes[y], vectorised (every predictor reads the
+    unfiltered image, as the encoder side of the PNG filters does)."""
+    import struct
+    import zlib
+
+    h, w, c = img.shape
+    cur = img.reshape(h, w * c).astype(np.int64)
+    up = np.vstack([np.zeros((1, w * c), np.int64), cur[:-1]])
+    left = np.hstack([np.zeros((h, c), np.int64), cur[:, :-c]])
+    upleft = np.hstack([np.zeros((h, c), np.int64), up[:, :-c]])
+    p = left + up - upleft
+    pa, pb, pc = abs(p - left), abs(p - up), abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    preds = np.stack([np.zeros_like(cur), left, up, (left + up) // 2, paeth])
+    ft = np.asarray(ftypes, np.uint8)
+    pred = np.take_along_axis(preds, ft[None, :, None].astype(np.int64), 0)[0]
+    raw = np.hstack([ft[:, None], ((cur - pred) % 256).astype(np.uint8)])
+
+    def chunk(tag, data):
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(
+            ">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, {1: 0, 3: 2, 4: 6}[c], 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("mode", ["L", "LA", "RGB", "RGBA", "P"])
+def test_png_decode_takes_each_colour_type_as_pil_converts_it(mode):
+    """PIL-encoded frames of every colour type the server accepts decode to
+    PIL's own `convert("RGB")` of them (alpha dropped, grey replicated,
+    palette looked up), with PIL's adaptive filters and with all five filter
+    types forced row by row."""
+    import io
+
+    from PIL import Image
+
+    from fisr_tpu_torch.data.png_io import decode_png
+
+    rng = np.random.default_rng(3)
+    yy, xx = np.mgrid[0:40, 0:56]
+    base = (((xx * 5 + yy * 3)[..., None] + rng.integers(0, 30, (40, 56, 4))) % 256)
+    img = Image.fromarray(base.astype(np.uint8), "RGBA")
+    img = img.convert("RGB").quantize(64) if mode == "P" else img.convert(mode)
+    for optimize in (False, True):
+        buf = io.BytesIO()
+        img.save(buf, format="PNG", optimize=optimize)
+        got = decode_png(buf.getvalue())
+        assert got.dtype == np.uint8 and got.shape == (40, 56, 3)
+        np.testing.assert_array_equal(got, np.array(Image.open(buf).convert("RGB")))
+    if mode in ("L", "RGB", "RGBA"):
+        arr = np.array(img).reshape(40, 56, -1)
+        data = _filtered_png(arr, [y % 5 for y in range(40)])
+        want = np.array(Image.open(io.BytesIO(data)).convert("RGB"))
+        np.testing.assert_array_equal(decode_png(data), want)
+
+
+def test_png_decode_refuses_malformed_input():
+    """What a client can send wrong: a header over PIL's bomb limit, image
+    data longer or shorter than the header says (inflated no further than
+    that), data that is not zlib, an interlaced or 16-bit image."""
+    import struct
+    import zlib
+
+    from fisr_tpu_torch.data.png_io import decode_png
+
+    def png(w, h, body, depth=8, ctype=2, interlace=0):
+        def chunk(tag, data):
+            return struct.pack(">I", len(data)) + tag + data + struct.pack(
+                ">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+        return (b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
+                + chunk(b"IDAT", body) + chunk(b"IEND", b""))
+
+    row = bytes(1 + 4 * 3)
+    assert decode_png(png(4, 2, zlib.compress(row * 2))).shape == (2, 4, 3)
+    cases = [(png(20000, 20000, zlib.compress(row)), "pixel limit"),
+             (png(4, 2, zlib.compress(bytes(10 ** 7))), "holds more than 26 bytes"),
+             (png(4, 2, zlib.compress(row)), "holds 13 bytes, its 4x2 header says 26"),
+             (png(4, 2, b"not zlib"), "corrupt"),
+             (png(4, 2, zlib.compress(row * 2), interlace=1), "interlace 1"),
+             (png(4, 2, zlib.compress(row * 2), depth=16), "8-bit"),
+             (png(4, 2, zlib.compress(bytes(5) * 2), ctype=3), "no PLTE"),
+             (b"GIF89a", "not a PNG")]
+    for data, match in cases:
+        with pytest.raises(ValueError, match=match):
+            decode_png(data)
+
+
+def test_png_decode_of_a_2k_all_paeth_frame_is_exact_and_quick():
+    """A 1024x1920 frame with every row Paeth-filtered (each pixel sequential
+    on its left neighbour) decodes byte-exact in a vector step a diagonal:
+    0.52-0.60 s on an 8-core Xeon, where a loop over pixels took 37 s
+    (scripts/time_png_decode.py).
+    The bound is loose on purpose (a shared CPU); it catches the loop."""
+    import io
+    import time
+
+    from PIL import Image
+
+    from fisr_tpu_torch.data.png_io import decode_png
+
+    img = np.random.default_rng(0).integers(0, 256, (1024, 1920, 3), np.uint8)
+    data = _filtered_png(img, [4] * 1024)
+    np.testing.assert_array_equal(np.array(Image.open(io.BytesIO(data))), img)
+    t0 = time.perf_counter()
+    got = decode_png(data)
+    assert time.perf_counter() - t0 < 10.0
+    np.testing.assert_array_equal(got, img)
 
 
 def test_cuda_device_raises_without_a_card(monkeypatch, tmp_path):
@@ -363,7 +480,8 @@ def test_cuda_device_raises_without_a_card(monkeypatch, tmp_path):
 SCRIPTS = [os.path.join(ROOT, "chip_smoke.py"),
            os.path.join(ROOT, "scripts", "profile_torch_video.py"),
            os.path.join(ROOT, "scripts", "time_torch_pipeline.py"),
-           os.path.join(ROOT, "scripts", "time_cost_volume_variants.py")]
+           os.path.join(ROOT, "scripts", "time_cost_volume_variants.py"),
+           os.path.join(ROOT, "scripts", "time_png_decode.py")]
 
 
 def _port_files():
@@ -405,8 +523,11 @@ def test_port_sources_import_no_jax():
             "fisr_tpu_torch/data/dataset.py", "fisr_tpu_torch/data/synth.py",
             "fisr_tpu_torch/data/augment.py", "fisr_tpu_torch/data/flow_dataset.py",
             "fisr_tpu_torch/utils/summary.py", "fisr_tpu_torch/utils/watchdog.py",
-            "fisr_tpu_torch/utils/tb_writer.py", "fisr_tpu_torch/utils/flow_viz.py"} <= rel
-    assert len(rel) > 46
+            "fisr_tpu_torch/utils/tb_writer.py", "fisr_tpu_torch/utils/flow_viz.py",
+            "fisr_tpu_torch/utils/profiling.py", "fisr_tpu_torch/infer/autotune.py",
+            "fisr_tpu_torch/infer/daemon.py", "fisr_tpu_torch/cli/serve.py",
+            "fisr_tpu_torch/cli/tune.py"} <= rel
+    assert len(rel) > 51
 
 
 def test_port_modules_load_without_jax():

@@ -189,20 +189,33 @@ def test_staged_pipeline_matches_jax_pipeline(tmp_path, full_pwc_trees):
     np.testing.assert_allclose(wp[0], wp[1], rtol=0, atol=1e-3 / 255)
 
 
-def test_pipeline_staged_path_is_not_ported(small_models, tmp_path):
-    """What the pipeline still lacks is the 'tuned' plan (the autotune cache):
-    it raises and names its place in the queue, on either path's entry."""
+def test_pipeline_staged_path_is_not_ported(small_models, tmp_path, monkeypatch):
+    """The 'tuned' plan reads the autotune cache: with this size never tuned
+    the fused pipeline runs the 'auto' plan (the same frames), with a tuned
+    entry it runs that entry's plan; fewer than 3 frames raise."""
+    from fisr_tpu_torch.infer import autotune
+
     _, _, fisr, pwc = small_models
-    _write_folder(tmp_path / "vid", n=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 5"):
-        video.run_video_pipeline(fisr, pwc, str(tmp_path / "vid"), fused=True,
-                                 fisr_grid="tuned", device="cpu", verbose=False)
+    folder = _write_folder(tmp_path / "vid", n=3, h=32, w=64)
+    monkeypatch.setattr(autotune, "DEFAULT_CACHE_PATH", str(tmp_path / "tune.json"))
+
+    def run(tag, spec):
+        out = video.run_video_pipeline(fisr, pwc, folder, out_folder=str(tmp_path / tag),
+                                       fused=True, fisr_grid=spec, device="cpu", verbose=False)
+        return np.stack([read_png(p) for p in out])
+
+    np.testing.assert_array_equal(run("tuned", "tuned"), run("auto", "auto"))
+    autotune.TuneCache(device="cpu").tune(fisr, 32, 64, reps=1)
+    grid, pads = autotune.TuneCache(device="cpu").best_plan(32, 64, "float32")
+    assert pads == (0, 0)
+    np.testing.assert_array_equal(run("tuned2", "tuned"), run("grid", grid))
     with pytest.raises(ValueError, match="3 frames"):
         video.run_video_pipeline(fisr, pwc, str(tmp_path), device="cpu")
 
 
-def test_cli_video_phase(tmp_path, full_pwc_trees):
+def test_cli_video_phase(tmp_path, full_pwc_trees, monkeypatch):
     from fisr_tpu_torch.cli.main import main
+    from fisr_tpu_torch.infer import autotune
 
     ftree, ptree = full_pwc_trees
     folder = _write_folder(tmp_path / "vid", n=3, h=32, w=64)
@@ -234,12 +247,13 @@ def test_cli_video_phase(tmp_path, full_pwc_trees):
         device="cpu", verbose=False)
     tiled = run("tiled", "--fused", "--fisr_grid", "1,2")
     np.testing.assert_array_equal(tiled, np.stack([read_png(p) for p in want]))
-    run("auto", "--fused", "--fisr_grid", "auto")
+    auto = run("auto", "--fused", "--fisr_grid", "auto")
     # no weights anywhere: no flag, no checkpoint under --checkpoint_dir
     with pytest.raises(SystemExit, match="weights"):
         main(base + ["--fused", "--checkpoint_dir", str(tmp_path / "no_ckpt")])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        main(base + weights + ["--fused", "--fisr_grid", "tuned"])
+    # 'tuned' with this size never tuned on this device: the 'auto' plan
+    monkeypatch.setattr(autotune, "DEFAULT_CACHE_PATH", str(tmp_path / "tune.json"))
+    np.testing.assert_array_equal(run("tuned", "--fused", "--fisr_grid", "tuned"), auto)
     # the train phase is ported: it gets as far as reading its corpus
     with pytest.raises(OSError):
         main(base + weights + ["--phase", "train", "--train_data_path", str(tmp_path / "no.mat"),
