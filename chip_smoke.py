@@ -89,10 +89,32 @@ Phases (any failure raises and exits non-zero):
    the kernels against their plain versions at the shapes those launches had
    ([4, 192>>l, 192>>l, C], down to 3x3), f32 and bf16. Prints ms per step
    and peak memory.
+11. weights - the full-width FISRnet and PWC-Net exported as TF1 bundles
+   (convert/tensor_bundle.write_bundle, with crc32c); the CLI's
+   --fisr_tf_ckpt / --pwc_tf_ckpt build both on the card, and convert.cli
+   --ckpt (the PWC-Net one with --verify-crc) into checkpoints of the port
+   that the CLI's restore route reads: every state-dict tensor bit-equal to
+   the originals. Prints each bundle's MB and read time.
+12. trained - with tensorstore on the machine: the repo's trained PWC-Net
+   (checkpoint_dir/pwcnet, an orbax store) through the CLI's default
+   restore, the fused main path on it at 1024x1920 bf16 (15 launches, all
+   mma_bf16), the steady window's time and spread, and an f32 flow of a
+   256x448 crop on the card against the same module on the CPU (1e-4 of max
+   |flow|). Without tensorstore (the card's machine has none): the reader
+   must refuse an orbax step with the ImportError that names the
+   convert.cli --orbax route, and the line says the route was not exercised.
+13. prepare - cli/prepare flow-from-pngs on one scene of 5 synthetic
+   1024x1920 PNG frames, f32, with the trained PWC-Net where phase 12 ran,
+   else the converted deterministic one: exactly 20 launches at ss=1 (4
+   pairs x 5 levels) and 10 at ss=2, all fma_f32, the kernel against the
+   plain version at their shapes; the .flo bit-equal to
+   flows_for_sequences, warps_for_sequences finite; ms a pair.
 
 Prints the card's name and power limit, a {"kernels": [...]} line (the
 bf16 and f32 forward kernels and the backward kernel; the bf16 entry's
-`launches_serve` counts a /v1/window and a steady stream frame), and as its
+`launches_serve` counts a /v1/window and a steady stream frame,
+`launches_trained` the trained phase's run or null; the f32 entry's
+`launches_prepare` the prepare phase's runs), and as its
 last line {"ok": true, "device": {...}}. Without a CUDA device it exits
 with 1 and prints no result.
 """
@@ -100,6 +122,7 @@ with 1 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import json
 import os
@@ -729,9 +752,9 @@ def phase_tiled(fisr, pwc, frames_u8):
     return plans
 
 
-def have_h5py() -> bool:
+def have_module(name: str) -> bool:
     try:
-        import h5py  # noqa: F401
+        __import__(name)
     except ImportError:
         return False
     return True
@@ -745,7 +768,7 @@ def phase_staged(fisr, pwc, folder, tmp):
     from fisr_tpu_torch.ops.conv import BF16
 
     h, w = WINDOW
-    artifacts = have_h5py()
+    artifacts = have_module("h5py")
     if not artifacts:
         log("[staged] this machine has no h5py: write_artifacts=False, the .mat round trip "
             "was not exercised on the card (the CPU tests cover it)")
@@ -841,7 +864,7 @@ def phase_eval(fisr, tmp):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    if have_h5py():
+    if have_module("h5py"):
         flow_path, warp_path = os.path.join(tmp, "eval.flo"), os.path.join(tmp, "eval_warp.mat")
         flo.write_flo_5dim(flow, flow_path)
         matio.write_warp_mat(warp, warp_path)
@@ -858,7 +881,7 @@ def phase_eval(fisr, tmp):
     log(f"[eval] TiledRunner (2, 2) exact, bf16, ssim_impl=gaussian: {res}")
     if len(os.listdir(kw["out_dir"])) != 7:
         raise AssertionError(f"eval wrote {os.listdir(kw['out_dir'])}")
-    log(f"[eval] through {'evaluate_test_set (.flo/.mat files)' if have_h5py() else 'evaluate_scenes (no h5py here)'}: "
+    log(f"[eval] through {'evaluate_test_set (.flo/.mat files)' if have_module("h5py") else 'evaluate_scenes (no h5py here)'}: "
         f"one pass in {seconds:.2f} s, peak {peak_gib:.2f} GiB")
     sec_per_frame = res.sec_per_frame
 
@@ -1299,6 +1322,220 @@ def phase_joint(fisr, pwc):
     return launches, max_err, bwd_launches, bwd_err
 
 
+def same_weights(got, want, what):
+    """Every state-dict tensor of `got` bit-equal to `want`'s, or raises."""
+    a, b = got.state_dict(), want.state_dict()
+    if list(a) != list(b):
+        raise AssertionError(f"{what}: state-dict keys differ")
+    for k in a:
+        if a[k].device != b[k].device or not torch.equal(a[k], b[k]):
+            raise AssertionError(f"{what}: {k} differs from the original ({a[k].device})")
+
+
+def phase_weights(fisr, pwc, tmp):
+    """The full-width models as TF1 bundles, back through the CLI's TF flags
+    and through convert.cli + the checkpoint route, bit for bit."""
+    from fisr_tpu_torch.cli import main as cli
+    from fisr_tpu_torch.convert import params, tensor_bundle, tf_import
+    from fisr_tpu_torch.convert.cli import main as convert_main
+
+    prefixes, lines = {}, []
+    for what, model, export in (("fisrnet", fisr, tf_import.export_fisrnet),
+                                ("pwcnet", pwc, tf_import.export_pwcnet)):
+        prefix = os.path.join(tmp, "tf1", f"{what}.ckpt-122000")
+        t0 = time.perf_counter()
+        tensor_bundle.write_bundle(prefix, export(params.to_jax_tree(model)))
+        t_write = time.perf_counter() - t0
+        mb = os.path.getsize(prefix + ".data-00000-of-00001") / 1e6
+        t0 = time.perf_counter()
+        tensor_bundle.read_bundle(prefix)
+        t_read = time.perf_counter() - t0
+        prefixes[what] = prefix
+        lines.append(f"{what} {mb:.1f} MB: write (with crc32c) {t_write:.2f} s, read "
+                     f"{t_read:.3f} s ({mb / t_read:.0f} MB/s)")
+    # the CLI's TF1 flags build both models on the card
+    args = cli.parse_args(["--fisr_tf_ckpt", prefixes["fisrnet"],
+                           "--pwc_tf_ckpt", prefixes["pwcnet"]])
+    same_weights(cli._model(args, "cuda", "fisr"), fisr, "--fisr_tf_ckpt")
+    same_weights(cli._model(args, "cuda", "pwc"), pwc, "--pwc_tf_ckpt")
+    # convert.cli into checkpoints of the port, then the default restore route
+    ck = os.path.join(tmp, "converted")
+    convert_main(["--model", "fisrnet", "--ckpt", prefixes["fisrnet"],
+                  "--out", os.path.join(ck, "FISRnet_exp1"), "--step", "122000"])
+    t0 = time.perf_counter()
+    convert_main(["--model", "pwcnet", "--ckpt", prefixes["pwcnet"],
+                  "--out", os.path.join(ck, "pwcnet"), "--step", "595000", "--verify-crc"])
+    t_verify = time.perf_counter() - t0
+    args = cli.parse_args(["--checkpoint_dir", ck])
+    same_weights(cli._model(args, "cuda", "fisr"), fisr, "convert.cli + checkpoint (FISRnet)")
+    same_weights(cli._model(args, "cuda", "pwc"), pwc, "convert.cli + checkpoint (PWC-Net)")
+    log(f"[weights] TF1 bundles: {'; '.join(lines)}; convert.cli --verify-crc of the PWC-Net "
+        f"bundle {t_verify:.2f} s (read, crc32c of every tensor and block, check, save)")
+    log("[weights] --fisr_tf_ckpt / --pwc_tf_ckpt and convert.cli --ckpt + the checkpoint "
+        "route: every state-dict tensor on the card bit-equal to the originals")
+    return os.path.join(ck, "pwcnet")
+
+
+def phase_trained(fisr, folder, tmp):
+    """The repo's trained PWC-Net (an orbax store, checkpoint_dir/pwcnet)
+    through the CLI's default restore, then the fused main path with it
+    (`trained_main_path`). Returns (the module, the path's launches), or
+    (None, None) where this machine cannot read orbax."""
+    from fisr_tpu_torch.cli import main as cli
+    from fisr_tpu_torch.convert.orbax_read import ORBAX_ROUTE
+    from fisr_tpu_torch.train.checkpoint import CheckpointManager
+
+    if not have_module("tensorstore"):
+        # the reader's refusal, on a step directory shaped like orbax's
+        step = os.path.join(tmp, "orbax", "step_1")
+        os.makedirs(step)
+        for name in ("_METADATA", "manifest.ocdbt"):
+            open(os.path.join(step, name), "w").close()
+        try:
+            CheckpointManager(os.path.dirname(step)).restore()
+        except ImportError as e:
+            if ORBAX_ROUTE not in str(e):
+                raise AssertionError(f"orbax ImportError does not name {ORBAX_ROUTE}: {e}")
+        else:
+            raise AssertionError("an orbax step restored without tensorstore")
+        log("[trained] this machine has no tensorstore: the orbax route was not exercised on the "
+            "card (the CPU tests cover it); restoring an orbax step raises the ImportError that "
+            "names the convert.cli --orbax route")
+        return None, None
+    root = os.path.dirname(os.path.abspath(__file__))
+    args = cli.parse_args(["--checkpoint_dir", os.path.join(root, "checkpoint_dir")])
+    pwc = cli._model(args, "cuda", "pwc")
+    info = trained_main_path(fisr, pwc, folder, tmp, "checkpoint_dir/pwcnet through the CLI's "
+                                                     "default restore")
+    return pwc, info["launches"]
+
+
+def trained_main_path(fisr, pwc, folder, tmp, source):
+    """The fused main path on the frames of `folder` with a trained PWC-Net
+    (15 launches, all mma_bf16), the steady window's time and spread, and an
+    f32 flow of a crop on the card against the same module on the CPU.
+    Returns {launches, steady (ms spread), flow_err, flow_scale}."""
+    from fisr_tpu_torch.infer.video import make_fisr_window_fn, make_flow_fn, make_pair_fn
+    from fisr_tpu_torch.infer.video import run_video_pipeline
+    from fisr_tpu_torch.kernels import cost_volume as kernel
+    from fisr_tpu_torch.ops.conv import BF16, F32
+
+    h, w = WINDOW
+    torch.cuda.synchronize()
+    reset_launches(kernel)
+    with torch.inference_mode():
+        outs = run_video_pipeline(fisr, pwc, folder, out_folder=os.path.join(tmp, "trained"),
+                                  policy=BF16, fused=True, flow_upscale=FLOW_UPSCALE,
+                                  device="cuda", verbose=False)
+    torch.cuda.synchronize()
+    require_launches(kernel, "trained main path")
+    launches = kernel.LAUNCHES
+    if len(outs) != 6:
+        raise AssertionError(f"trained pipeline wrote {len(outs)} outputs")
+    pair_fn, window_fn = make_pair_fn(pwc.cfg, BF16, FLOW_UPSCALE), make_fisr_window_fn(BF16)
+    frames = synthetic_frames(3, h, w)
+    d = [torch.from_numpy(f[None]).to("cuda").float() for f in frames]
+    seconds = []
+    with torch.inference_mode():
+        p12 = pair_fn(pwc, d[1], d[2])
+        win = torch.stack(d, dim=1)
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p01 = pair_fn(pwc, d[0], d[1])
+            pred = window_fn(fisr, win, p01, p12)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+    if not (torch.isfinite(pred).all() and torch.isfinite(p01[0]).all()):
+        raise AssertionError("trained main path: non-finite outputs")
+    steady = spread_ms(seconds[1:])
+    # an f32 flow of a 256x448 crop on the card against the same module on the CPU
+    ch, cw = PWC_CROP
+    crop = [torch.from_numpy(f[None, :ch, :cw]).float() for f in synthetic_frames(2, h, w, seed=3)]
+    with torch.inference_mode():
+        got = make_flow_fn(pwc.cfg, F32)(pwc, crop[0].cuda(), crop[1].cuda()).cpu()
+        pwc_cpu = copy.deepcopy(pwc).cpu()
+        want = make_flow_fn(pwc.cfg, F32)(pwc_cpu, crop[0], crop[1])
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    if not err <= 1e-4 * scale:
+        raise AssertionError(f"trained f32 flow card vs CPU: max |diff| {err} of max |flow| {scale}")
+    log(f"[trained] {source}; fused main path {h}x{w} bf16: {len(outs)} outputs, {launches} cost-volume launches (all mma_bf16); "
+        f"steady window (a pair + a window) {json.dumps(steady)}; f32 flow of a {ch}x{cw} crop, "
+        f"card vs CPU: max |diff| {err} of max |flow| {scale} (bound 1e-4 of it)")
+    return {"launches": launches, "steady": steady, "flow_err": err, "flow_scale": scale}
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside the block: the transposed
+    convolutions of PWC-Net's upsampling otherwise may add in another order
+    from one call to the next."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def phase_prepare(pwc, which, ckpt_dir, tmp):
+    """cli/prepare's test-set flow precompute on one scene of 5 frames at the
+    main path's size, f32; returns the launches at ss=1 and ss=2, the
+    largest kernel-vs-plain |diff| at their shapes and the ms a pair."""
+    from fisr_tpu_torch.cli import prepare
+    from fisr_tpu_torch.data import flo
+    from fisr_tpu_torch.data.png_io import read_png, write_png
+    from fisr_tpu_torch.infer.video import make_flow_fn
+    from fisr_tpu_torch.kernels import cost_volume as kernel
+    from fisr_tpu_torch.ops.conv import F32
+
+    h, w = WINDOW
+    scene = os.path.join(tmp, "prepare_scene")
+    os.makedirs(scene)
+    for i, fr in enumerate(synthetic_frames(5, h, w, seed=5)):
+        write_png(fr, os.path.join(scene, f"frame_{i:03d}.png"))
+    launches, seen_all, walls = {}, [], {}
+    for ss in (1, 2):
+        out = os.path.join(tmp, f"prepare_ss{ss}.flo")
+        torch.cuda.synchronize()
+        reset_launches(kernel)
+        t0 = time.perf_counter()
+        with recorded_launches(kernel) as (seen, _), cudnn_deterministic():
+            prepare.main(["flow-from-pngs", "--png_dir", scene, "--out", out,
+                          "--pwc_ckpt", ckpt_dir, "--ss", str(ss)])
+        torch.cuda.synchronize()
+        walls[ss] = time.perf_counter() - t0
+        want = 20 if ss == 1 else 10
+        require_launches(kernel, f"prepare flow-from-pngs --ss {ss}", want=want, variant="fma_f32")
+        launches[ss], seen_all = kernel.LAUNCHES, seen_all + seen
+    hh, ww = h * FLOW_UPSCALE, w * FLOW_UPSCALE
+    err = check_recorded(kernel, seen_all, [(2, hh >> lvl, ww >> lvl, c)
+                                            for lvl, c in LEVEL_CHANNELS.items()] * 6,
+                         "prepare", seed=9)
+    seqs = np.stack([read_png(os.path.join(scene, f"frame_{i:03d}.png"))
+                     for i in range(5)])[None].astype(np.float32)
+    with cudnn_deterministic():
+        flows = prepare.flows_for_sequences(pwc, seqs, 1)
+    written = flo.read_flo_5dim(os.path.join(tmp, "prepare_ss1.flo"))
+    if written.shape != (1, 8, h, w, 2) or not np.array_equal(written, flows):
+        raise AssertionError(f"prepare .flo {written.shape} differs from flows_for_sequences "
+                             f"{flows.shape}: max |diff| {np.abs(written - flows).max()}")
+    warps = prepare.warps_for_sequences(seqs, flows, 1)
+    if warps.shape != (1, 8, h, w, 3) or not np.isfinite(warps).all():
+        raise AssertionError(f"prepare warps: shape {warps.shape} or non-finite values")
+    flow_fn = make_flow_fn(pwc.cfg, F32)
+    a, b = (torch.from_numpy(seqs[0, i:i + 1]).cuda() for i in (0, 1))
+    pair_ms = time_ms(lambda: flow_fn(pwc, a, b), reps=5, warmup=1)
+    log(f"[prepare] flow-from-pngs on 5 frames of {h}x{w} with the {which} PWC-Net, f32: "
+        f"{launches[1]} cost-volume launches at ss=1 ({walls[1]:.2f} s, PNG decode included), "
+        f"{launches[2]} at ss=2 ({walls[2]:.2f} s), all fma_f32; the kernel against the plain "
+        f"version at their shapes: max |diff| {err}; .flo bit-equal to flows_for_sequences "
+        f"(both under cuDNN's deterministic algorithms); warps finite; {pair_ms:.2f} ms a pair "
+        "(flow, f32, cuDNN's defaults). build_corpus writes .mat (h5py) and stays on the CPU: "
+        "not run here")
+    return launches, err, pair_ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -1335,6 +1572,15 @@ def main() -> int:
         timed(phase_eval, fisr, tmp)
         timed(phase_train, tmp)
         pwc_train = timed(phase_pwc_train, tmp)
+        converted_pwc = timed(phase_weights, fisr, pwc, tmp)
+        trained_pwc, launches_trained = timed(phase_trained, fisr, folder, tmp)
+        if trained_pwc is None:
+            prepare_with = (pwc, "deterministic (the TF-oracle generator's, converted)",
+                            converted_pwc)
+        else:
+            prepare_with = (trained_pwc, "trained (checkpoint_dir/pwcnet)", os.path.join(
+                os.path.dirname(os.path.abspath(__file__)), "checkpoint_dir", "pwcnet"))
+        launches_prepare, err_prepare, prepare_pair_ms = timed(phase_prepare, *prepare_with, tmp)
     launches_joint, err_joint, bwd_launches_joint, bwd_err_joint = timed(phase_joint, fisr, pwc)
     launches_pwc_train, backward = pwc_train["launches"], pwc_train["backward"]
     err_pwc_train = max(pwc_train["errs"].values())
@@ -1352,6 +1598,8 @@ def main() -> int:
         "launches_serve": served["launches"],
         # per training step: make_pwc_train_step, make_joint_train_step
         "launches_train": {"pwc_train_step": launches_pwc_train, "joint_step": launches_joint},
+        # the fused main path on the repo's trained PWC-Net (null: no tensorstore here)
+        "launches_trained": launches_trained,
         # over the inference window's level shapes, the ragged shapes and the
         # shapes that the pwc_train and joint steps launched, f32 and bf16
         "max_abs_err": max(max_err, err_pwc_train, err_joint),
@@ -1378,8 +1626,12 @@ def main() -> int:
         "launches": pwc_train["steps"]["f32"]["launches"],
         "launches_train": {"pwc_train_step": pwc_train["steps"]["f32"]["launches"],
                            "joint_step": launches_joint},
-        # the inference level shapes, the ragged shapes, the training shapes
-        "max_abs_err": max([r["f32_err"] for r in levels] + [pwc_train["errs"]["f32"]]),
+        # cli/prepare flow-from-pngs, one scene of 5 frames of 1024x1920
+        "launches_prepare": {"ss1": launches_prepare[1], "ss2": launches_prepare[2]},
+        "prepare_pair_ms": prepare_pair_ms,
+        # the inference level shapes, the ragged shapes, the training and prepare shapes
+        "max_abs_err": max([r["f32_err"] for r in levels] + [pwc_train["errs"]["f32"],
+                                                             err_prepare]),
         # one frame pair's five levels (levels 6..2) in f32
         "ms": sum(r["f32_ms"] for r in levels),
         "graph_ms": sum(r["f32_graph_ms"] for r in levels),

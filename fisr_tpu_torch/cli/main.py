@@ -14,18 +14,21 @@ and defaults (the reference's own main.py:23-106):
                    artifacts), on the device with --fused (--fisr_grid
                    full|auto|tuned|GH,GW)
 
-FISRnet weights named by a flag win: --fisr_params_npz (an .npz of '/'-joined
-JAX key paths -> arrays), else the TF-oracle generator at full width
-(--deterministic_weights). Without either they come from the experiment's
+FISRnet weights named by a flag win: --fisr_tf_ckpt (a TF1 TensorBundle
+prefix, the released FISRnet-122000's format), then --fisr_params_npz (an .npz
+of '/'-joined JAX key paths -> arrays), then the TF-oracle generator at full
+width (--deterministic_weights). Without any they come from the experiment's
 newest checkpoint (<checkpoint_dir>/FISRnet_exp<exp_num>, what the train
 phase writes), else a fresh init, said aloud (the JAX CLI's `_load_params`).
 The test that ends the train phase scores the checkpoint it just wrote.
-PWC-Net weights come from --pwc_params_npz or the generator, else from the
-best step (least validation EPE) of a checkpoint directory: --pwc_ckpt, or by
-default <checkpoint_dir>/pwcnet (what `train.pwc_trainer.pwc_fit` writes; the
-JAX CLI's `_load_pwc_params`); without any the run stops. Checkpoints in the
-JAX package's orbax format and TF1 bundles (--fisr_tf_ckpt, --pwc_tf_ckpt)
-raise NotImplementedError (ROADMAP.md, Queue 1 item 6). The JAX CLI's
+PWC-Net weights come from --pwc_tf_ckpt, --pwc_params_npz or the generator,
+else from the best step (least validation EPE) of a checkpoint directory:
+--pwc_ckpt, or by default <checkpoint_dir>/pwcnet (what
+`train.pwc_trainer.pwc_fit` writes, and where the repo keeps the JAX
+package's trained PWC-Net; the JAX CLI's `_load_pwc_params`); without any the
+run stops. A checkpoint directory may hold steps of the port (tree.npz) or
+of the JAX package (orbax; reading those needs tensorstore, see
+convert/cli.py --orbax for a machine without it). The JAX CLI's
 --jax_cache_dir has no counterpart (nothing is compiled ahead of a run); every
 other flag of it parses here with its default.
 """
@@ -144,9 +147,11 @@ def parse_args(argv=None):
                    help="PWC-Net checkpoint directory (what pwc_fit writes); default: "
                         "<checkpoint_dir>/pwcnet where it holds a checkpoint")
     p.add_argument("--fisr_tf_ckpt", type=str, default=None,
-                   help="TF1 TensorBundle prefix for FISRnet: not ported yet, raises")
+                   help="TF1 TensorBundle prefix for FISRnet (e.g. .../FISRnet-122000); "
+                        "wins over every other FISRnet weight source")
     p.add_argument("--pwc_tf_ckpt", type=str, default=None,
-                   help="TF1 TensorBundle prefix for PWC-Net: not ported yet, raises")
+                   help="TF1 TensorBundle prefix for PWC-Net (e.g. .../pwcnet.ckpt-595000); "
+                        "wins over every other PWC-Net weight source")
     p.add_argument("--deterministic_weights", action="store_true",
                    help="full-width weights from the TF-oracle generator "
                         "(convert/oracle.py) for any model without an .npz")
@@ -164,35 +169,38 @@ def _model(args, device, what):
     in `args` (flags another parser lacks read as unset; cli/serve uses it)."""
     from fisr_tpu_torch.convert import params
 
+    from_jax, deterministic, tf_model, title = {
+        "fisr": (params.fisrnet_from_jax, params.deterministic_fisrnet, "fisrnet", "FISRnet"),
+        "pwc": (params.pwcnet_from_jax, params.deterministic_pwcnet, "pwcnet", "PWC-Net")}[what]
     tf_ckpt = getattr(args, f"{what}_tf_ckpt", None)
     if tf_ckpt:
-        raise NotImplementedError(
-            f"--{what}_tf_ckpt {tf_ckpt}: reading TF1 checkpoints is not ported yet "
-            "(ROADMAP.md, Queue 1 item 6)")
+        from fisr_tpu_torch.convert.tf_import import load_tf_checkpoint
+
+        model = from_jax(load_tf_checkpoint(tf_ckpt, tf_model), device=device)
+        print(f" [*] imported TF1 {title} checkpoint {tf_ckpt}")
+        return model
     npz = getattr(args, f"{what}_params_npz")
-    from_jax, deterministic = {
-        "fisr": (params.fisrnet_from_jax, params.deterministic_fisrnet),
-        "pwc": (params.pwcnet_from_jax, params.deterministic_pwcnet)}[what]
     if npz:
         return from_jax(params.tree_from_npz(npz), device=device)
     if args.deterministic_weights:
         return deterministic(device=device)
     tree = _restore(args, what)
     if tree is not None:
-        return from_jax(tree["params"], device=device)
+        return from_jax(tree["params"] if "params" in tree else tree, device=device)
     if what == "fisr":
         from fisr_tpu_torch.models.fisrnet import FISRnet
 
         print(" [!] no checkpoint found: using fresh init")
         return FISRnet(sf=getattr(args, "scale_factor", 2), device=device)
-    raise SystemExit(f"no {what} weights: pass --{what}_params_npz, --pwc_ckpt or "
-                     "--deterministic_weights")
+    raise SystemExit(f"no {what} weights: pass --{what}_tf_ckpt, --{what}_params_npz, "
+                     "--pwc_ckpt or --deterministic_weights")
 
 
 def _restore(args, what):
     """The checkpoint tree for `what`, or None where there is none: FISRnet's
     newest step of the experiment, PWC-Net's best step (least metric) of
-    --pwc_ckpt or <checkpoint_dir>/pwcnet."""
+    --pwc_ckpt or <checkpoint_dir>/pwcnet; steps of the port or of the JAX
+    package's orbax manager (train/checkpoint.CheckpointManager.restore)."""
     from fisr_tpu_torch.train.checkpoint import CheckpointManager
 
     if what == "fisr":

@@ -11,9 +11,11 @@ warms the fused window and the pair-cached stream stages up for the fixed
 frame size under the memory check, then serves HTTP (infer/daemon.py:
 /healthz, /v1/info, /metrics, /v1/window, /v1/stream/<id>/frame).
 
-The weight flags and --device are the port's own: it cannot read the JAX
-package's orbax checkpoints or TF bundles yet (ROADMAP.md, Queue 1 item 6).
---multichip parses and raises (Queue 1 item 5b).
+The weight flags and --device are the port's own. The checkpoint directories
+may hold steps of the port or of the JAX package's orbax manager (read with
+tensorstore), so by default the repo's trained <checkpoint_dir>/pwcnet
+loads as in the JAX CLI. As the JAX serve parser, this one has no TF1 bundle
+flag. --multichip parses and raises (Queue 1 item 5b).
 """
 
 from __future__ import annotations

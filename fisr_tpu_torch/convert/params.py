@@ -28,7 +28,8 @@ from fisr_tpu_torch.models.fisrnet import FISRnet
 from fisr_tpu_torch.models.pwcnet import PWCNet, PWCNetConfig
 
 __all__ = ["fisrnet_name_map", "pwcnet_name_map", "fisrnet_from_jax",
-           "pwcnet_from_jax", "from_tf_vars", "to_jax_tree", "tree_from_npz",
+           "pwcnet_from_jax", "tree_from_tf_vars", "from_tf_vars", "to_jax_tree",
+           "jax_shapes", "tree_from_npz",
            "flatten_tree", "deterministic_fisrnet", "deterministic_pwcnet",
            "adam_state_to_jax", "load_adam_state_", "train_state_tree",
            "load_train_state_"]
@@ -172,6 +173,19 @@ def pwcnet_from_jax(tree: dict, cfg: PWCNetConfig = PWCNetConfig(), device="cuda
     return _load_tree_(PWCNet(cfg, device=device), tree)
 
 
+def tree_from_tf_vars(tf_vars: Dict[str, np.ndarray], name_map: Dict[str, tuple]) -> dict:
+    """{tf_variable_name: array} -> the param tree in the JAX layout (f32):
+    a rename, both sides keeping TF's kernel layouts."""
+    missing = [k for k in name_map if k not in tf_vars]
+    if missing:
+        raise KeyError(f"{len(missing)} variables missing from the checkpoint, "
+                       f"e.g. {missing[:3]}")
+    tree: dict = {}
+    for name, path in name_map.items():
+        _set_path(tree, path, np.asarray(tf_vars[name], np.float32))
+    return tree
+
+
 def from_tf_vars(tf_vars: Dict[str, np.ndarray], model: str,
                  cfg: PWCNetConfig = PWCNetConfig(), device="cuda"):
     """{tf_variable_name: array} -> the port's 'fisrnet' or 'pwcnet' module."""
@@ -181,12 +195,7 @@ def from_tf_vars(tf_vars: Dict[str, np.ndarray], model: str,
         name_map = pwcnet_name_map(cfg.pyr_lvls, cfg.flow_pred_lvl, cfg.use_res_cx)
     else:
         raise ValueError(f"unknown model {model!r}")
-    missing = [k for k in name_map if k not in tf_vars]
-    if missing:
-        raise KeyError(f"{len(missing)} variables missing, e.g. {missing[:3]}")
-    tree: dict = {}
-    for name, path in name_map.items():
-        _set_path(tree, path, tf_vars[name])
+    tree = tree_from_tf_vars(tf_vars, name_map)
     if model == "fisrnet":
         return fisrnet_from_jax(tree, device=device)
     return pwcnet_from_jax(tree, cfg, device=device)
@@ -206,9 +215,21 @@ def tree_from_npz(path: str) -> dict:
     return tree
 
 
+def jax_shapes(model: nn.Module) -> Dict[tuple, tuple]:
+    """{key path: shape} of the module's weights in the JAX layout."""
+    out = {}
+    for key, t in model.state_dict().items():
+        parts = key.split(".")
+        shape = tuple(t.shape)
+        if len(shape) == 4:
+            shape = (shape[2], shape[3], shape[1], shape[0])
+        out[tuple(parts[:-1]) + (_LEAF_TO_JAX[parts[-1]],)] = shape
+    return out
+
+
 def _tf_shapes(model: nn.Module, name_map: Dict[str, tuple]) -> Dict[str, tuple]:
-    flat = dict(flatten_tree(to_jax_tree(model)))
-    return {name: flat[path].shape for name, path in name_map.items()}
+    shapes = jax_shapes(model)
+    return {name: shapes[path] for name, path in name_map.items()}
 
 
 def deterministic_fisrnet(ch: int = 64, device="cuda") -> FISRnet:

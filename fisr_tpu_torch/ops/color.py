@@ -11,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["yuv2rgb_matlab", "rgb2yuv_matlab", "yuv2rgb_matlab_u8", "yuv2rgb_float"]
+__all__ = ["yuv2rgb_matlab", "rgb2yuv_matlab", "yuv2rgb_matlab_u8", "rgb2yuv_matlab_u8",
+           "yuv2rgb_float"]
 
 # MATLAB ycbcr2rgb inverse matrix (reference utils.py:107), rows R, G, B.
 _TINV = np.array(
@@ -88,3 +89,11 @@ def yuv2rgb_matlab_u8(yuv_u8: np.ndarray) -> np.ndarray:
     f64 transform, clip, then truncation by `.astype('uint8')`."""
     rgb = (yuv_u8.astype(np.float64) @ _M_YUV2RGB.T.astype(np.float64)) - _B_YUV2RGB.astype(np.float64)
     return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def rgb2yuv_matlab_u8(rgb_u8: np.ndarray) -> np.ndarray:
+    """Host-side uint8 RGB -> uint8 YUV as the JAX package converts corpus
+    frames (fisr_tpu/native/bindings.py, its numpy route): the f32 transform,
+    clip, then truncation."""
+    rgb = torch.from_numpy(np.ascontiguousarray(rgb_u8, np.uint8))
+    return rgb2yuv_matlab(rgb).numpy().astype(np.uint8)

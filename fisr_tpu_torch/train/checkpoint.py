@@ -15,6 +15,10 @@ in the JAX layout (`params/level_1/enc/level_0/conv_in/w`,
 `opt_state/mu/...`, `opt_state/nu/...`, `opt_state/count`, `step`), the format
 `convert/params.tree_from_npz` reads. A step is written under a temporary
 name and renamed, so an interrupted save never shows as the latest step.
+
+`restore` also reads the steps that the JAX package's orbax manager wrote
+(through convert/orbax_read.py, which needs `tensorstore`), so a directory of
+either package restores here; writing stays `tree.npz`.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 
+from fisr_tpu_torch.convert.orbax_read import is_orbax_step, read_orbax_tree
 from fisr_tpu_torch.convert.params import flatten_tree, tree_from_npz
 
 __all__ = ["CheckpointManager", "derive_epoch_batch"]
@@ -115,16 +120,47 @@ class CheckpointManager:
         key = min if self.best_mode != "max" else max
         return key(entries, key=lambda e: e["metric"])["step"]
 
-    def restore(self, step: Optional[int] = None) -> dict:
-        """The saved tree as a nested dict of numpy arrays."""
+    def restore(self, step: Optional[int] = None, item: Any = None) -> Any:
+        """The saved tree as nested dicts (and lists) of numpy arrays: a step
+        of this package (`tree.npz`) or of the JAX package's orbax manager.
+        With `item`, a template tree, the result has its structure: the same
+        keys, each leaf's shape checked and cast to the template leaf's
+        dtype, as orbax restores into an item."""
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
-        path = os.path.join(self._step_dir(step), TREE_FILE)
-        if not os.path.exists(path):
-            raise NotImplementedError(
-                f"{self._step_dir(step)} holds no {TREE_FILE}: it is not a checkpoint of this "
-                "package. Reading the JAX package's orbax directories is not ported yet "
-                "(ROADMAP.md, Queue 1 item 6)")
-        return tree_from_npz(path)
+        path = self._step_dir(step)
+        if os.path.exists(os.path.join(path, TREE_FILE)):
+            tree = tree_from_npz(os.path.join(path, TREE_FILE))
+        elif is_orbax_step(path):
+            tree = read_orbax_tree(path)
+        else:
+            raise FileNotFoundError(
+                f"{path} holds neither {TREE_FILE} (this package's checkpoints) nor _METADATA "
+                "and manifest.ocdbt (the JAX package's orbax checkpoints)")
+        return tree if item is None else _restore_into(item, tree, ())
+
+
+def _restore_into(template: Any, tree: Any, path: tuple) -> Any:
+    """`tree` in the structure, shapes and dtypes of `template`."""
+    where = "/".join(map(str, path)) or "the root"
+    if isinstance(template, dict):
+        if not isinstance(tree, dict):
+            raise KeyError(f"checkpoint at {where}: a {type(tree).__name__} where the template "
+                           "has a dict")
+        if set(tree) != set(template):
+            raise KeyError(f"checkpoint at {where}: missing {sorted(set(template) - set(tree))}, "
+                           f"unexpected {sorted(set(tree) - set(template))}")
+        return {k: _restore_into(v, tree[k], path + (k,)) for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(template):
+            raise KeyError(f"checkpoint at {where}: not a sequence of {len(template)} items "
+                           "as in the template")
+        return type(template)(_restore_into(t, v, path + (i,))
+                              for i, (t, v) in enumerate(zip(template, tree)))
+    want = np.asarray(template)
+    got = np.asarray(tree)
+    if got.shape != want.shape:
+        raise ValueError(f"checkpoint at {where}: shape {got.shape} != template's {want.shape}")
+    return got.astype(want.dtype)

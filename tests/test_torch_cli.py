@@ -1,5 +1,6 @@
-"""Port: the CLI's flags against the JAX CLI's, and its PWC-Net checkpoint
-route (`--pwc_ckpt`, the default look at <checkpoint_dir>/pwcnet), on the CPU.
+"""Port: the CLI's flags against the JAX CLI's, and its weight routes (the
+PWC-Net checkpoint of `--pwc_ckpt` or <checkpoint_dir>/pwcnet, the repo's
+trained orbax tree, the TF1 bundle flags), on the CPU.
 
 Every flag of fisr_tpu/cli/main.py's parser but --jax_cache_dir parses on the
 port with the same default, so a reference command line runs on both.
@@ -70,14 +71,31 @@ def test_pwc_weights_come_from_the_best_checkpoint(tmp_path, capsys):
         cli._model(_args(tmp_path, "--pwc_ckpt", str(tmp_path / "none")), "cpu", "pwc")
 
 
-def test_orbax_and_tf_checkpoints_raise_not_ported(tmp_path):
-    # the repo's trained PWC-Net is an orbax store: its reader is Queue 1 item 6
+def test_trained_orbax_tree_and_tf_bundles_load(tmp_path, capsys):
+    from fisr_tpu_torch.convert import tensor_bundle, tf_import
+    from fisr_tpu_torch.convert.orbax_read import read_orbax_tree
+    from fisr_tpu_torch.models.fisrnet import FISRnet
+
+    # the repo's trained PWC-Net is an orbax store: the default look at
+    # <checkpoint_dir>/pwcnet loads its best step, as the JAX CLI does
     orbax = os.path.join(ROOT, "checkpoint_dir")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        cli._model(cli.parse_args(["--checkpoint_dir", orbax]), "cpu", "pwc")
-    for what in ("fisr", "pwc"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            cli._model(_args(tmp_path, f"--{what}_tf_ckpt", "x/ckpt-1"), "cpu", what)
+    model = cli._model(cli.parse_args(["--checkpoint_dir", orbax, "--device", "cpu"]), "cpu", "pwc")
+    assert " [*] restored PWC-Net checkpoint step 14000 from " in capsys.readouterr().out
+    want = params.pwcnet_from_jax(
+        read_orbax_tree(os.path.join(orbax, "pwcnet", "step_14000"))["params"], device="cpu")
+    for (k, a), b in zip(model.state_dict().items(), want.state_dict().values()):
+        assert torch.equal(a, b), k
+    # each --*_tf_ckpt loads its TF1 bundle and wins over the other flags
+    for what, made, export, title in (
+            ("fisr", FISRnet(seed=1, device="cpu"), tf_import.export_fisrnet, "FISRnet"),
+            ("pwc", params.deterministic_pwcnet(device="cpu"), tf_import.export_pwcnet, "PWC-Net")):
+        prefix = str(tmp_path / f"{what}.ckpt-7")
+        tensor_bundle.write_bundle(prefix, export(params.to_jax_tree(made)), crc=False)
+        model = cli._model(_args(tmp_path, f"--{what}_tf_ckpt", prefix, "--deterministic_weights"),
+                           "cpu", what)
+        assert f" [*] imported TF1 {title} checkpoint {prefix}" in capsys.readouterr().out
+        for (k, a), b in zip(model.state_dict().items(), made.state_dict().values()):
+            assert torch.equal(a, b), k
 
 
 def test_main_prints_the_reference_lines(tmp_path, capsys):

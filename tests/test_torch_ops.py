@@ -481,7 +481,8 @@ SCRIPTS = [os.path.join(ROOT, "chip_smoke.py"),
            os.path.join(ROOT, "scripts", "profile_torch_video.py"),
            os.path.join(ROOT, "scripts", "time_torch_pipeline.py"),
            os.path.join(ROOT, "scripts", "time_cost_volume_variants.py"),
-           os.path.join(ROOT, "scripts", "time_png_decode.py")]
+           os.path.join(ROOT, "scripts", "time_png_decode.py"),
+           os.path.join(ROOT, "scripts", "time_torch_trained.py")]
 
 
 def _port_files():
@@ -526,21 +527,24 @@ def test_port_sources_import_no_jax():
             "fisr_tpu_torch/utils/tb_writer.py", "fisr_tpu_torch/utils/flow_viz.py",
             "fisr_tpu_torch/utils/profiling.py", "fisr_tpu_torch/infer/autotune.py",
             "fisr_tpu_torch/infer/daemon.py", "fisr_tpu_torch/cli/serve.py",
-            "fisr_tpu_torch/cli/tune.py"} <= rel
+            "fisr_tpu_torch/cli/tune.py", "fisr_tpu_torch/convert/orbax_read.py",
+            "fisr_tpu_torch/convert/tensor_bundle.py", "fisr_tpu_torch/convert/tf_import.py",
+            "fisr_tpu_torch/convert/cli.py", "fisr_tpu_torch/cli/prepare.py",
+            "fisr_tpu_torch/cli/build_corpus.py", "fisr_tpu_torch/utils/supervisor.py"} <= rel
     assert len(rel) > 51
 
 
 def test_port_modules_load_without_jax():
-    """Every module of the port imports with no JAX loaded, and with h5py, PIL
-    and triton made unimportable (the card's machine has no h5py and no PIL;
-    this one has no triton)."""
+    """Every module of the port imports with no JAX loaded, and with h5py, PIL,
+    triton, tensorstore and ml_dtypes made unimportable (the card's machine
+    has no h5py, no PIL and no tensorstore; this one has no triton)."""
     mods = []
     for path in _port_files()[len(SCRIPTS):]:
         rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
         mods.append(rel[: -len(".__init__")] if rel.endswith(".__init__") else rel)
     code = (
         "import importlib, sys\n"
-        "for m in ('h5py', 'PIL', 'triton'): sys.modules[m] = None\n"
+        "for m in ('h5py', 'PIL', 'triton', 'tensorstore', 'ml_dtypes'): sys.modules[m] = None\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'orbax', 'flax', 'fisr_tpu')]\n"

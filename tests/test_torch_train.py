@@ -468,10 +468,11 @@ def test_checkpoint_save_is_atomic_and_orbax_directories_raise(tmp_path, monkeyp
     assert mgr.latest_step() == 2 and sorted(os.listdir(tmp_path / "ck")) == ["ledger.json", "step_2"]
     with pytest.raises(FileNotFoundError):
         checkpoint.CheckpointManager(str(tmp_path / "empty")).restore()
-    # a directory written by the JAX package's orbax manager
+    # a step directory that is neither this package's nor a whole orbax step
+    # (an empty manifest.ocdbt without _METADATA) names the directory
     os.makedirs(tmp_path / "orbax" / "step_7")
     (tmp_path / "orbax" / "step_7" / "manifest.ocdbt").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(FileNotFoundError, match=r"orbax/step_7 holds neither tree\.npz"):
         checkpoint.CheckpointManager(str(tmp_path / "orbax")).restore()
 
 
