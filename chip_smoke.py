@@ -109,12 +109,36 @@ Phases (any failure raises and exits non-zero):
    pairs x 5 levels) and 10 at ss=2, all fma_f32, the kernel against the
    plain version at their shapes; the .flo bit-equal to
    flows_for_sequences, warps_for_sequences finite; ms a pair.
+14. multi - the multi-device layer (core/mesh, infer/serving,
+   infer/sharded, the data-parallel steps, MultiChipService) on an NCCL
+   group of world size 1 started in this process on a file store (the
+   records hold one card: no scaling is measured), destroyed at the end of
+   the phase: make_frame_parallel_stream_step(ragged=True) over 5 windows
+   (7 frames of 1024x1920, bf16) in rounds of 2 (2, 2, then 1 valid of 2),
+   the carry threaded from make_pair_fn: its frames within MULTI_MAX_U8 /
+   MULTI_MEAN_U8 of the single-card pair-cached loop, exactly 5 + 3 x 5 =
+   20 mma_bf16 launches (one PWC-Net call a round batches both directions
+   of its pairs; the padded window is computed too), the kernel against its
+   plain version at those shapes, ms a round and a valid window;
+   make_frame_parallel_video_step on 2 windows equal to the fused step, 10
+   launches; make_sharded_runner on a 1-wide spatial axis equal to the
+   (1, 1) padded tiling of the frame zero-padded by the halo, its ms;
+   make_pwc_train_step(mesh=) at 256x448, batch 8, f32, bit-equal to the
+   step without a mesh (5 fma_f32 + 5 bwd_f32 launches), ms a step with and
+   without the mesh; fit(mesh=) for 2 bf16 steps with a checkpoint and a
+   resume; a MultiChipService over cuda:0 twice ('auto' grid, warmed up)
+   behind the HTTP server: one /v1/window (10 launches, equal to
+   FISRService.window), two 4-frame streams pinned to different services
+   (5 launches a steady frame, within 1 u8 count of a single service's
+   stream), /v1/info chips 2.
 
 Prints the card's name and power limit, a {"kernels": [...]} line (the
 bf16 and f32 forward kernels and the backward kernel; the bf16 entry's
 `launches_serve` counts a /v1/window and a steady stream frame,
-`launches_trained` the trained phase's run or null; the f32 entry's
-`launches_prepare` the prepare phase's runs), and as its
+`launches_trained` the trained phase's run or null, `launches_multi` the
+multi phase's stream round, video step, window and stream frame; the f32
+entry's `launches_prepare` the prepare phase's runs; `pwc_train_step_dp` in
+`launches_train` the data-parallel step's), and as its
 last line {"ok": true, "device": {...}}. Without a CUDA device it exits
 with 1 and prints no result.
 """
@@ -1536,6 +1560,272 @@ def phase_prepare(pwc, which, ckpt_dir, tmp):
     return launches, err, pair_ms
 
 
+# stream step (rounds of B=2 windows) vs the single-card pair-cached loop
+# (batch 1), bf16, in u8 counts: the same reasoning as STAGED_MAX_U8 (another
+# batch size may take another cuDNN algorithm and bf16 summation order)
+MULTI_MAX_U8, MULTI_MEAN_U8 = 4, 0.03
+
+
+def phase_multi(fisr, pwc, tmp):
+    """The multi-device layer on a world of one rank: an NCCL group started
+    in this process on a file store under `tmp`, destroyed at the end of the
+    phase whatever happens (the failure still fails the script)."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "nccl_store"), 1),
+                            rank=0, world_size=1)
+    try:
+        return multi_device(fisr, pwc, tmp)
+    finally:
+        dist.destroy_process_group()
+
+
+def multi_device(fisr, pwc, tmp):
+    import threading
+    import urllib.request
+    import zlib
+
+    import torch.distributed as dist
+
+    from fisr_tpu_torch.core import mesh
+    from fisr_tpu_torch.data.flow_dataset import FlowDataset
+    from fisr_tpu_torch.data.synth import synthetic_store
+    from fisr_tpu_torch.infer import serving, sharded
+    from fisr_tpu_torch.infer.daemon import (FISRService, MultiChipService, make_server,
+                                             pack_frames, unpack_frames)
+    from fisr_tpu_torch.infer.tiled import TiledRunner
+    from fisr_tpu_torch.infer.video import (make_fisr_window_fn, make_fused_video_step,
+                                            make_pair_fn)
+    from fisr_tpu_torch.kernels import cost_volume as kernel
+    from fisr_tpu_torch.ops.conv import BF16, F32
+    from fisr_tpu_torch.train import pwc_trainer, trainer
+    from fisr_tpu_torch.train.loop import fit
+
+    clock = [time.perf_counter()]
+
+    def say(line):
+        """log `line` with the seconds since the last line"""
+        now = time.perf_counter()
+        log(f"{line} [{now - clock[0]:.1f} s]")
+        clock[0] = now
+
+    m = mesh.make_mesh((1, 1), device="cuda")
+    say(f"[multi] {torch.cuda.device_count()} card(s) visible, world size "
+        f"{dist.get_world_size()} ({dist.get_backend()}), mesh "
+        f"{dict(zip(m.mesh_dim_names, m.shape))}: every collective runs on one rank; no "
+        f"scaling across cards is measured")
+    h, w = WINDOW
+    launches = {}
+    quant = FISRService._quant
+
+    # the pair-cached stream step, ragged: 5 windows (7 frames) in rounds of 2
+    seq = torch.from_numpy(synthetic_frames(7, h, w, seed=5)).cuda().float()
+    windows = torch.stack([seq[k:k + 3] for k in range(5)])
+    step = serving.make_frame_parallel_stream_step(m, policy=BF16, upscale=FLOW_UPSCALE,
+                                                   cfg=pwc.cfg, ragged=True)
+    pair_fn = make_pair_fn(pwc.cfg, BF16, FLOW_UPSCALE)
+    reset_launches(kernel)
+    with torch.inference_mode(), recorded_launches(kernel) as (seen, _):
+        carry = pair_fn(pwc, seq[None, 0], seq[None, 1])
+        got, per_round = [], []
+        for r0 in (0, 2, 4):
+            before = kernel.LAUNCHES
+            padded, n_valid = serving.pad_stream_round(windows[r0:r0 + 2], 2)
+            pred, carry = step(fisr, pwc, padded, carry, n_valid)
+            got.append(quant(pred[:n_valid]))
+            per_round.append(kernel.LAUNCHES - before)
+    torch.cuda.synchronize()
+    require_launches(kernel, "stream step (seed pair + 3 rounds of 2)", want=20)
+    if per_round != [5, 5, 5]:
+        raise AssertionError(f"stream step launches a round: {per_round}, want 5 each")
+    launches["stream_round"] = per_round[0]
+    level_shapes = [(b, (FLOW_UPSCALE * h) >> lvl, (FLOW_UPSCALE * w) >> lvl, c)
+                    for b in (2, 4, 4, 4) for lvl, c in LEVEL_CHANNELS.items()]
+    err_bf16 = check_recorded(kernel, seen, level_shapes, "stream step", seed=21)
+    win_fn = make_fisr_window_fn(BF16)
+    with torch.inference_mode():  # the single-card loop of FISRService.stream_frame
+        prev, want = pair_fn(pwc, seq[None, 0], seq[None, 1]), []
+        for k in range(5):
+            new = pair_fn(pwc, seq[None, k + 1], seq[None, k + 2])
+            want.append(quant(win_fn(fisr, windows[k:k + 1], prev, new)))
+            prev = new
+        got_u8 = torch.cat(got).cpu().numpy()
+        want_u8 = torch.cat(want).cpu().numpy()
+        carry_err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(carry, prev))
+        # the frames move at a constant speed, so every pair has the same flow:
+        # the warps tell the pairs apart
+        wrong_err = float((carry[1] - pair_fn(pwc, seq[None, 4], seq[None, 5])[1]).abs().max())
+    stream_diff = u8_diff(got_u8, want_u8)
+    if (got_u8.shape != (5, 2 * h, 2 * w, 9) or stream_diff[0] > MULTI_MAX_U8
+            or stream_diff[1] > MULTI_MEAN_U8 or not carry_err < wrong_err):
+        raise AssertionError(f"stream step vs the single-card loop: shape {got_u8.shape}, (max, "
+                             f"mean u8) {stream_diff}, carry vs pair (5, 6) {carry_err}, vs "
+                             f"pair (4, 5) {wrong_err}")
+    rounds = []
+    with torch.inference_mode():
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pred, _ = step(fisr, pwc, windows[:2], carry, 2)
+            quant(pred).cpu()
+            rounds.append(time.perf_counter() - t0)
+    round_ms = spread_ms(rounds[1:])
+    say(f"[multi] stream step: 5 windows in rounds of 2 (2, 2, 1 valid of 2), "
+        f"{per_round} mma_bf16 launches a round + 5 for the seed pair = 20; vs the single-card "
+        f"loop (max, mean u8) {stream_diff} (bounds {MULTI_MAX_U8}, {MULTI_MEAN_U8}); carry vs "
+        f"pair (5, 6) max |diff| {carry_err:.3g} (its warps vs pair (4, 5)'s {wrong_err:.3g}); "
+        f"kernel vs plain "
+        f"at the {len(dict.fromkeys(seen))} launched shapes {err_bf16:.3g}; a round of 2 windows "
+        f"median {round_ms['median_ms']:.2f} ms (min {round_ms['min_ms']:.2f}, max "
+        f"{round_ms['max_ms']:.2f}, n {round_ms['n']}), a valid window "
+        f"{round_ms['median_ms'] / 2:.2f} ms (min {round_ms['min_ms'] / 2:.2f}, max "
+        f"{round_ms['max_ms'] / 2:.2f})")
+
+    # the frame-parallel video step on 2 windows against the fused step
+    vstep = serving.make_frame_parallel_video_step(m, policy=BF16, cfg=pwc.cfg,
+                                                   upscale=FLOW_UPSCALE)
+    fused = make_fused_video_step(pwc.cfg, BF16, FLOW_UPSCALE)
+    reset_launches(kernel)
+    with torch.inference_mode(), cudnn_deterministic():
+        got = vstep(fisr, pwc, windows[:2])
+        torch.cuda.synchronize()
+        require_launches(kernel, "frame-parallel video step (2 windows)", want=10)
+        launches["video_step"] = kernel.LAUNCHES
+        same = torch.equal(got, fused(fisr, pwc, windows[:2]))
+    if not same or got.shape != (2, 2 * h, 2 * w, 9):
+        raise AssertionError(f"video step {tuple(got.shape)} differs from the fused step")
+    say(f"[multi] frame-parallel video step: 2 windows, {launches['video_step']} mma_bf16 "
+        f"launches, equal to make_fused_video_step")
+
+    # the halo-sharded runner on a 1-wide spatial axis: both halos are zeros
+    g = torch.Generator(device="cuda").manual_seed(7)
+    inp = torch.rand((1, h, w, 29), device="cuda", generator=g)
+    runner = sharded.make_sharded_runner(m, boundary=32, policy=BF16)
+    reset_launches(kernel)
+    with torch.inference_mode(), cudnn_deterministic():
+        got = runner(fisr, inp)
+        padded = torch.nn.functional.pad(inp, (0, 0, 32, 32)).cpu().numpy()
+        want = TiledRunner(fisr, grid=(1, 1), boundary=32, policy=BF16, mode="padded",
+                           device="cuda")(padded)[:, :, 64:-64]
+    require_launches(kernel, "sharded runner (FISRnet has no kernel)", want=0)
+    if not np.array_equal(got.cpu().numpy(), want):
+        raise AssertionError("sharded runner (n = 1) differs from the zero-padded (1, 1) tiling")
+    with torch.inference_mode():
+        sharded_ms = time_ms(lambda: runner(fisr, inp), reps=3, warmup=1)
+    say(f"[multi] sharded runner, spatial axis of 1: {tuple(got.shape)}, equal to "
+        f"TiledRunner((1, 1), 'padded') on the frame zero-padded by 32 columns a side; "
+        f"{sharded_ms:.2f} ms a window")
+
+    # data-parallel PWC-Net step (f32) against the same step without a mesh
+    ph, pw = PWC_CROP
+    ds = FlowDataset.synthetic_textured(n=10, h=ph, w=pw, seed=0, val_split=0.2)
+    batch = next(ds.batches(8, train=True, epoch_seed=0))
+    dp, dp_ms = {}, {}
+    for name, on in (("single", None), ("mesh", m)):
+        state = pwc_trainer.create_pwc_state(0, trainer.tf_adam(1e-4), device="cuda")
+        step_fn = pwc_trainer.make_pwc_train_step(policy=F32, mesh=on)
+        b = mesh.shard_batch(batch, m) if on is not None else trainer.batch_to_device(batch, "cuda")
+        reset_launches(kernel)
+        with cudnn_deterministic(), recorded_launches(kernel) as (seen, seen_bwd):
+            state, met = step_fn(state, b)
+        torch.cuda.synchronize()
+        if on is not None:
+            require_launches(kernel, "data-parallel pwc train step", want=5, variant="fma_f32")
+            require_backward(kernel, "data-parallel pwc train step", want=5, variant="bwd_f32")
+            launches["pwc_train_step_dp"] = kernel.LAUNCHES
+            shapes = [(8, ph >> lvl, pw >> lvl, c) for lvl, c in LEVEL_CHANNELS.items()]
+            err_f32 = check_recorded(kernel, seen, shapes, "dp pwc step", seed=22)
+            bwd_err = check_recorded(kernel, seen_bwd, shapes, "dp pwc step", seed=23,
+                                     backward=True)
+        dp[name] = (float(met["loss"]), snapshot(state.model))
+        dp_ms[name] = wall_ms(lambda: step_fn(state, b))
+    same = dp["single"][0] == dp["mesh"][0] and all(
+        torch.equal(a, b) for a, b in zip(dp["single"][1], dp["mesh"][1]))
+    if not same:
+        raise AssertionError(f"data-parallel pwc step on one rank: loss {dp['mesh'][0]} vs "
+                             f"{dp['single'][0]}, parameters bit-equal {same}")
+    say(f"[multi] make_pwc_train_step(mesh=), batch 8 of {ph}x{pw}, f32: 5 fma_f32 and 5 "
+        f"bwd_f32 launches, loss and parameters bit-equal to the step without a mesh (cuDNN "
+        f"deterministic); {dp_ms['mesh']:.2f} ms a step with the mesh, {dp_ms['single']:.2f} "
+        f"without: the one-rank all-reduces cost {dp_ms['mesh'] - dp_ms['single']:.2f} ms")
+    store = synthetic_store(n_samples=2 * 8 + 2, h=32, w=32, seed=0, val_size=2)
+    kw = dict(ckpt_dir=os.path.join(tmp, "dp_ckpt"), log_dir=os.path.join(tmp, "dp_log"),
+              batch_size=8, val_batch_size=2, freq_display=1, policy=BF16, mesh=m)
+    t0 = time.perf_counter()
+    state = fit(store, epochs=1, **kw)
+    resumed = fit(store, epochs=1, **kw)
+    if not (state.step == resumed.step == 2 and all(
+            torch.equal(a, b) for a, b in zip(state.model.parameters(),
+                                              resumed.model.parameters()))):
+        raise AssertionError(f"fit(mesh=): steps {state.step}, {resumed.step}")
+    say(f"[multi] fit(mesh=): 2 steps of batch 8 of 32x32 (bf16) + validation + checkpoint, "
+        f"then a resume bit-equal to it, {time.perf_counter() - t0:.2f} s")
+    del state, resumed
+
+    # MultiChipService over one card named twice, behind the HTTP server
+    fisr16 = copy.deepcopy(fisr).to(torch.bfloat16)  # as cli/serve casts it
+    t0 = time.perf_counter()
+    multi = MultiChipService(fisr16, pwc, h, w, devices=["cuda:0", "cuda:0"], policy=BF16,
+                             fisr_grid="auto", upscale=FLOW_UPSCALE)
+    build_s = time.perf_counter() - t0
+    server = make_server(multi, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def post(path, frames_):
+        req = urllib.request.Request(url + path, data=pack_frames(frames_))
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, r.read()
+
+    try:
+        frames = list(synthetic_frames(4, h, w, seed=9))
+        reset_launches(kernel)
+        code, body = post("/v1/window", frames[:3])
+        require_launches(kernel, "MultiChipService /v1/window", want=10)
+        launches["window"] = kernel.LAUNCHES
+        if code != 200 or not all(np.array_equal(a, b) for a, b in zip(
+                unpack_frames(body), multi.services[0].window(frames[:3]))):
+            raise AssertionError("MultiChipService /v1/window differs from FISRService.window")
+        ids = [f"cam{i}" for i in range(8)]
+        ids = [ids[0], next(i for i in ids if zlib.crc32(i.encode()) % 2
+                            != zlib.crc32(ids[0].encode()) % 2)]
+        ref, stream_diffs = [multi.services[0].stream_frame("ref", f) for f in frames], []
+        multi.services[0].drop_stream("ref")
+        for sid in ids:
+            outs = []
+            for k, f in enumerate(frames):
+                reset_launches(kernel)
+                code, body = post(f"/v1/stream/{sid}/frame", [f])
+                if k >= 2:
+                    require_launches(kernel, "MultiChipService steady stream frame", want=5)
+                outs.append(unpack_frames(body) if code == 200 else None)
+            stream_diffs += [u8_diff(a, b) for o, r in zip(outs[2:], ref[2:]) for a, b in zip(o, r)]
+        launches["stream_frame"] = kernel.LAUNCHES
+        placed = [multi.services.index(multi._for_stream(i)) for i in ids]
+        if max(d[0] for d in stream_diffs) > 1 or placed != [0, 1] and placed != [1, 0]:
+            raise AssertionError(f"MultiChipService streams on {placed} vs a single service's: "
+                                 f"{stream_diffs}")
+        with urllib.request.urlopen(url + "/v1/info", timeout=60) as r:
+            info = json.loads(r.read())
+        # windows: 1 posted, 1 compared, 2 of the reference stream, 2 a stream
+        if info["chips"] != 2 or info["stats"]["windows"] != 1 + 1 + 2 + 2 * 2:
+            raise AssertionError(f"/v1/info: {info}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    say(f"[multi] MultiChipService over cuda:0 twice ('auto' grid, built and warmed up "
+        f"concurrently in {build_s:.2f} s): /v1/window {launches['window']} launches, equal to "
+        f"FISRService.window; streams {ids} on services {placed}, {launches['stream_frame']} "
+        f"launches a steady frame, vs a single service's stream (max u8) "
+        f"{max(d[0] for d in stream_diffs)}; /v1/info chips {info['chips']}")
+    del multi, fisr16
+    return {"launches": launches, "err_bf16": err_bf16, "err_f32": err_f32, "bwd_err": bwd_err,
+            "round_ms": round_ms,
+            "sharded_ms": sharded_ms, "dp_ms": dp_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -1581,6 +1871,7 @@ def main() -> int:
             prepare_with = (trained_pwc, "trained (checkpoint_dir/pwcnet)", os.path.join(
                 os.path.dirname(os.path.abspath(__file__)), "checkpoint_dir", "pwcnet"))
         launches_prepare, err_prepare, prepare_pair_ms = timed(phase_prepare, *prepare_with, tmp)
+        multi = timed(phase_multi, fisr, pwc, tmp)
     launches_joint, err_joint, bwd_launches_joint, bwd_err_joint = timed(phase_joint, fisr, pwc)
     launches_pwc_train, backward = pwc_train["launches"], pwc_train["backward"]
     err_pwc_train = max(pwc_train["errs"].values())
@@ -1600,9 +1891,15 @@ def main() -> int:
         "launches_train": {"pwc_train_step": launches_pwc_train, "joint_step": launches_joint},
         # the fused main path on the repo's trained PWC-Net (null: no tensorstore here)
         "launches_trained": launches_trained,
-        # over the inference window's level shapes, the ragged shapes and the
-        # shapes that the pwc_train and joint steps launched, f32 and bf16
-        "max_abs_err": max(max_err, err_pwc_train, err_joint),
+        # the multi phase on a world of one rank: a round of the frame-parallel
+        # stream step, the frame-parallel video step on 2 windows, a
+        # MultiChipService /v1/window and steady stream frame
+        "launches_multi": {k: multi["launches"][k]
+                           for k in ("stream_round", "video_step", "window", "stream_frame")},
+        # over the inference window's level shapes, the ragged shapes, the
+        # shapes that the pwc_train and joint steps launched (f32 and bf16)
+        # and those of the multi phase's stream step
+        "max_abs_err": max(max_err, err_pwc_train, err_joint, multi["err_bf16"]),
         # one frame pair's five levels (levels 6..2) in bf16, the main path's dtype
         "ms": sum(r["bf16_ms"] for r in levels),
         "graph_ms": sum(r["bf16_graph_ms"] for r in levels),
@@ -1625,13 +1922,14 @@ def main() -> int:
         # make_pwc_train_step step's count, and per step of each path
         "launches": pwc_train["steps"]["f32"]["launches"],
         "launches_train": {"pwc_train_step": pwc_train["steps"]["f32"]["launches"],
-                           "joint_step": launches_joint},
+                           "joint_step": launches_joint,
+                           "pwc_train_step_dp": multi["launches"]["pwc_train_step_dp"]},
         # cli/prepare flow-from-pngs, one scene of 5 frames of 1024x1920
         "launches_prepare": {"ss1": launches_prepare[1], "ss2": launches_prepare[2]},
         "prepare_pair_ms": prepare_pair_ms,
         # the inference level shapes, the ragged shapes, the training and prepare shapes
         "max_abs_err": max([r["f32_err"] for r in levels] + [pwc_train["errs"]["f32"],
-                                                             err_prepare]),
+                                                             err_prepare, multi["err_f32"]]),
         # one frame pair's five levels (levels 6..2) in f32
         "ms": sum(r["f32_ms"] for r in levels),
         "graph_ms": sum(r["f32_graph_ms"] for r in levels),
@@ -1647,9 +1945,12 @@ def main() -> int:
         "launches": pwc_train["steps"]["f32"]["bwd_launches"],
         "launches_train": {"pwc_train_step": pwc_train["steps"]["f32"]["bwd_launches"],
                            "joint_step": bwd_launches_joint["both"],
-                           "joint_step_flow_frozen": bwd_launches_joint["frozen"]},
-        # the ragged shapes and the shapes the pwc_train and joint steps launched
-        "max_abs_err": max(bwd_err_ragged, pwc_train["bwd_err"], bwd_err_joint),
+                           "joint_step_flow_frozen": bwd_launches_joint["frozen"],
+                           "pwc_train_step_dp": multi["launches"]["pwc_train_step_dp"]},
+        # the ragged shapes and the shapes the pwc_train, joint and
+        # data-parallel pwc steps launched
+        "max_abs_err": max(bwd_err_ragged, pwc_train["bwd_err"], bwd_err_joint,
+                           multi["bwd_err"]),
         # one backward at each of the five pwc_train level shapes, f32 (bf16 beside)
         "ms": backward["f32"]["kernel"]["ms"],
         "graph_ms": backward["f32"]["kernel"]["graph_ms"],

@@ -1,4 +1,4 @@
-"""Run the FISR serving daemon on one card.
+"""Run the FISR serving daemon.
 
     python -m fisr_tpu_torch.cli.serve --height 1024 --width 1920 \
         --checkpoint_dir ./checkpoint_dir --exp_num 1 --port 8417
@@ -15,7 +15,9 @@ The weight flags and --device are the port's own. The checkpoint directories
 may hold steps of the port or of the JAX package's orbax manager (read with
 tensorstore), so by default the repo's trained <checkpoint_dir>/pwcnet
 loads as in the JAX CLI. As the JAX serve parser, this one has no TF1 bundle
-flag. --multichip parses and raises (Queue 1 item 5b).
+flag. --multichip serves from every visible card, one service a card in this
+process (infer/daemon.MultiChipService); with --device cpu it is one CPU
+service.
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--flow_scale", type=int, default=2, choices=(1, 2),
                    help="2 = reference-parity x2-upscaled flow; 1 = flow at native resolution")
     p.add_argument("--multichip", action="store_true",
-                   help="one service a device in this process: not ported yet, raises")
+                   help="one service per visible card in this process; streams pin to a "
+                        "card, windows round-robin (with --device cpu: one CPU service)")
     p.add_argument("--auth_token", type=str, default=None,
                    help="require 'Authorization: Bearer <token>' on every endpoint except "
                         "/healthz")
@@ -66,29 +69,30 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def build_service(args):
-    """The FISRService that `args` describes, warmed up."""
+    """The FISRService (a MultiChipService under --multichip) that `args`
+    describes, warmed up."""
     import torch
 
     from fisr_tpu_torch.cli.main import _model
     from fisr_tpu_torch.device import resolve_device
-    from fisr_tpu_torch.infer.daemon import FISRService
+    from fisr_tpu_torch.infer.daemon import FISRService, MultiChipService
     from fisr_tpu_torch.ops.conv import BF16, F32
 
-    if args.multichip:
-        raise NotImplementedError(
-            "--multichip: one service a device (MultiChipService) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 5b)")
     device = resolve_device(args.device)
     policy = BF16 if args.dtype == "bfloat16" else F32
     fisr = _model(args, device, "fisr")
     pwc = _model(args, device, "pwc")
     if args.dtype == "bfloat16":
         fisr = fisr.to(torch.bfloat16)  # cast once at load
-    print(f" [*] warming up for {args.height}x{args.width} "
-          f"({args.dtype}, grid={args.fisr_grid}, {device}) ...", flush=True)
-    return FISRService(fisr, pwc, args.height, args.width, policy=policy,
-                       fisr_grid=parse_grid(args.fisr_grid), upscale=args.flow_scale,
-                       device=device)
+    kw = dict(policy=policy, fisr_grid=parse_grid(args.fisr_grid), upscale=args.flow_scale)
+    devices = [device]
+    if args.multichip and device.type == "cuda":
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    print(f" [*] warming up for {args.height}x{args.width} ({args.dtype}, "
+          f"grid={args.fisr_grid}, {device.type}, {len(devices)} chip(s)) ...", flush=True)
+    if args.multichip:
+        return MultiChipService(fisr, pwc, args.height, args.width, devices=devices, **kw)
+    return FISRService(fisr, pwc, args.height, args.width, device=device, **kw)
 
 
 def make_http_server(service, args):

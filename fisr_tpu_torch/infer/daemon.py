@@ -24,8 +24,8 @@ default (the pipeline's own space, as the reference's inputs are); with
 PNGs are written and read with the port's own codec (data/png_io; the card's
 machine has no PIL): the same pixels as the JAX package's PIL frames, other
 bytes. One `FISRService` serves one device and serializes its device calls
-behind a lock; the JAX package's `MultiChipService` (one service a chip in
-one process) is not ported yet (ROADMAP.md, Queue 1 item 5b).
+behind a lock; `MultiChipService` holds one a device in one process, behind
+the same HTTP layer.
 
 Hardening: `make_server(auth_token=...)` requires `Authorization: Bearer` on
 every endpoint except /healthz (load-balancer probes stay open), and
@@ -34,11 +34,15 @@ every endpoint except /healthz (load-balancer probes stay open), and
 
 from __future__ import annotations
 
+import copy
 import hmac
+import itertools
 import json
 import struct
 import threading
+import zlib
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional
 
@@ -54,7 +58,7 @@ from fisr_tpu_torch.ops.color import rgb2yuv_matlab, yuv2rgb_matlab_u8
 from fisr_tpu_torch.ops.conv import F32, Policy
 from fisr_tpu_torch.utils.profiling import assert_fits_hbm
 
-__all__ = ["pack_frames", "unpack_frames", "FISRService", "make_server"]
+__all__ = ["pack_frames", "unpack_frames", "FISRService", "MultiChipService", "make_server"]
 
 CONTENT_TYPE = "application/x-fisr-frames"
 
@@ -260,6 +264,79 @@ class FISRService:
         return "\n".join(lines) + "\n"
 
 
+def _on(model: torch.nn.Module, device: torch.device) -> torch.nn.Module:
+    """`model` if it already lives on `device`, else a copy moved there
+    (`.to` moves a module in place, and each service needs its own)."""
+    if next(model.parameters()).device == device:
+        return model
+    return copy.deepcopy(model).to(device)
+
+
+class MultiChipService:
+    """One `FISRService` a device, behind the same endpoint surface.
+
+    Routing: each stream id is pinned to a fixed device (crc32(id) % n, the
+    JAX package's function, so an id lands on the same index) so that its
+    device-resident carry (last two frames + cached pair) never migrates;
+    isolated /v1/window requests round-robin. Each service has its own lock,
+    so requests for different devices run concurrently: the in-process form
+    of "one daemon a device behind a load balancer".
+
+    `devices` defaults to every visible card (cuda:0 .. cuda:n-1); a list
+    may name one device twice (two services sharing a card). The services
+    are built, and warmed up, concurrently in threads; a service on another
+    device than the models' takes its own copy of them. On one shared card
+    the warm-ups' memory checks overlap, so each measures an upper bound.
+    """
+
+    def __init__(self, fisr_params: fisrnet.FISRnet, pwc_params: pwcnet.PWCNet, height: int,
+                 width: int, devices=None, **kw):
+        if devices is None:
+            devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        devices = [resolve_device(d) for d in devices]
+        if not devices:
+            raise ValueError("no devices to serve on")
+        self.devices = devices
+        models = {d: (_on(fisr_params, d), _on(pwc_params, d)) for d in dict.fromkeys(devices)}
+        with ThreadPoolExecutor(max_workers=len(devices)) as pool:
+            self.services = list(pool.map(
+                lambda d: FISRService(*models[d], height, width, device=d, **kw), devices))
+        self._rr = itertools.count()    # next() of a count is atomic under the GIL
+
+    def _for_stream(self, stream_id: str) -> FISRService:
+        return self.services[zlib.crc32(stream_id.encode()) % len(self.services)]
+
+    def window(self, frames: List[np.ndarray]) -> List[np.ndarray]:
+        return self.services[next(self._rr) % len(self.services)].window(frames)
+
+    def stream_frame(self, stream_id: str, frame: np.ndarray) -> Optional[List[np.ndarray]]:
+        return self._for_stream(stream_id).stream_frame(stream_id, frame)
+
+    def drop_stream(self, stream_id: str) -> bool:
+        return self._for_stream(stream_id).drop_stream(stream_id)
+
+    def info(self) -> dict:
+        base = self.services[0].info()
+        base["chips"] = len(self.services)
+        base["streams"] = sum(len(s._streams) for s in self.services)
+        base["stats"] = {k: sum(s.stats[k] for s in self.services)
+                         for k in self.services[0].stats}
+        return base
+
+    def metrics_text(self) -> str:
+        """Prometheus text: the counters as per-device labelled series."""
+        lines = []
+        for k in sorted(self.services[0].stats):
+            name = f"fisr_{k}_total"
+            lines.append(f"# TYPE {name} counter")
+            for i, s in enumerate(self.services):
+                lines.append(f'{name}{{chip="{i}"}} {s.stats[k]}')
+        lines.append("# TYPE fisr_active_streams gauge")
+        for i, s in enumerate(self.services):
+            lines.append(f'fisr_active_streams{{chip="{i}"}} {len(s._streams)}')
+        return "\n".join(lines) + "\n"
+
+
 # --------------------------------------------------------------------------
 # HTTP layer
 # --------------------------------------------------------------------------
@@ -278,10 +355,11 @@ def _yuv_to(frames: List[np.ndarray], colorspace: str) -> List[np.ndarray]:
     return [yuv2rgb_matlab_u8(f) for f in frames]
 
 
-def make_server(service: FISRService, host: str = "127.0.0.1", port: int = 8417,
+def make_server(service, host: str = "127.0.0.1", port: int = 8417,
                 auth_token: Optional[str] = None,
                 max_request_bytes: int = 192 * 1024 * 1024) -> ThreadingHTTPServer:
-    """Build (not start) the HTTP server; call .serve_forever() to run.
+    """Build (not start) the HTTP server of a `FISRService` or a
+    `MultiChipService`; call .serve_forever() to run.
 
     With `auth_token` set, every endpoint except /healthz requires
     `Authorization: Bearer <token>` (constant-time compare); /healthz stays

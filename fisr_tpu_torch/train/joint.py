@@ -27,6 +27,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from fisr_tpu_torch.core.mesh import average_gradients_, mean_metrics
 from fisr_tpu_torch.infer.video import _fisr_window_core, _flow_core, _warp_core
 from fisr_tpu_torch.models import fisrnet, pwcnet
 from fisr_tpu_torch.ops.conv import F32, Policy
@@ -71,6 +72,7 @@ def make_joint_train_step(
     upscale: int = 2,
     sf: int = 2,
     loss: str = "charbonnier",
+    mesh=None,
 ) -> Callable[[JointState, Dict[str, torch.Tensor]],
               Tuple[JointState, Dict[str, torch.Tensor]]]:
     """One joint step over the FULL serving path, the state updated in place.
@@ -81,6 +83,10 @@ def make_joint_train_step(
     adapts to the flow model's actual error distribution instead of the
     corpus's offline flows. batch: {"frames": [B,3,h,w,3] YUV [0,255],
     "target": [B, sf*h, sf*w, 9] in [0,1]}. cfg=None is the flow model's own.
+
+    With a `mesh`, data-parallel over 'data' as trainer.make_train_step: the
+    batch is this rank's rows, the gradients of the models that train (not a
+    frozen flow model's) and the metrics are averaged over the axis.
     """
     loss_fn_px = _charbonnier if loss == "charbonnier" else (lambda e: torch.mean(e * e))
 
@@ -107,10 +113,17 @@ def make_joint_train_step(
         with torch.no_grad():
             psnr = torch.mean(psnr_image(pred.clamp(0.0, 1.0), batch["target"]))
         total.backward()
+        metrics = {"joint_loss": total.detach(), "joint_PSNR": psnr}
+        if mesh is not None:
+            trained = list(state.fisr_model.parameters())
+            if train_pwc:
+                trained += list(state.pwc_model.parameters())
+            average_gradients_(trained, mesh)
+            metrics = mean_metrics(metrics, mesh)
         state.fisr_opt.step()
         if train_pwc:
             state.pwc_opt.step()
         state.step += 1
-        return state, {"joint_loss": total.detach(), "joint_PSNR": psnr}
+        return state, metrics
 
     return step_fn

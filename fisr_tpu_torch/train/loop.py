@@ -20,8 +20,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fisr_tpu_torch.convert.params import load_train_state_, train_state_tree
+from fisr_tpu_torch.core.mesh import barrier, data_sharding, mesh_device, replicated
 from fisr_tpu_torch.data.dataset import TrainStore
 from fisr_tpu_torch.device import resolve_device
 from fisr_tpu_torch.ops.conv import F32, Policy
@@ -38,23 +40,31 @@ from fisr_tpu_torch.utils.watchdog import Heartbeat
 __all__ = ["fit", "prefetch_to_device", "build_schedule", "read_metrics"]
 
 
-def prefetch_to_device(batch_iter, device, size: int = 2):
+def prefetch_to_device(batch_iter, device, size: int = 2, sharding=None):
     """Host-to-device batch prefetch, one batch ahead of the consumer.
 
     On a CUDA device each numpy batch is staged in pinned host memory and
     copied with `non_blocking=True`, so the NEXT batch's copy is queued
     before the current step is consumed and overlaps its compute. On the CPU
-    it is a plain iterator over tensors.
+    it is a plain iterator over tensors. `sharding`, as in the JAX package a
+    function of an array's ndim (lambda nd: core.mesh.data_sharding(mesh,
+    nd)), cuts each global batch to this rank's rows before the copy.
     """
     device = torch.device(device)
+
+    def local(b):
+        if sharding is None:
+            return b
+        return {k: np.ascontiguousarray(sharding(np.ndim(v))(v)) for k, v in b.items()}
+
     if device.type != "cuda":
         for b in batch_iter:
-            yield {k: torch.as_tensor(v) for k, v in b.items()}
+            yield {k: torch.as_tensor(v) for k, v in local(b).items()}
         return
 
     def put(b):
         return {k: torch.as_tensor(v).pin_memory().to(device, non_blocking=True)
-                for k, v in b.items()}
+                for k, v in local(b).items()}
 
     q = collections.deque()
     for b in batch_iter:
@@ -104,8 +114,19 @@ def fit(
     resume: bool = True,
     step_timeout_s: Optional[float] = None,
     device="cuda",
+    mesh=None,
 ) -> TrainState:
     """Train FISRnet (full width) on `store`; returns the final state.
+
+    With a `mesh` (core/mesh) training is data-parallel over its 'data'
+    axis, as the JAX `fit(mesh=)`: every rank draws the same global batch
+    (the same epoch seed) and keeps its rows, the state is replicated from
+    the axis's first rank at the start and after a resume, and the steps
+    average gradients and metrics over the axis. The device is the mesh's.
+    Only global rank 0 prints, writes checkpoints, metrics.jsonl and
+    TensorBoard; the others wait at a barrier before a resume reads a step.
+    Every rank runs the whole validation pass on its replica, so its numbers
+    are those of a single-process `fit`.
 
     `step_timeout_s` arms a utils.watchdog.Heartbeat: if no train step /
     val batch completes within that window the process dumps all thread
@@ -113,27 +134,35 @@ def fit(
     same function resumes from the last per-epoch checkpoint. Size it to
     cover the first step (cuDNN picks its algorithms there) plus margin;
     None (default) disarms it."""
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh_device(mesh)
+    writer = mesh is None or dist.get_rank() == 0
     iters = store.num_batches(batch_size)
     schedule_fn = build_schedule(lr_type, init_lr, iters, epochs,
                                  lr_stair_decay_points, lr_decreasing_factor,
                                  lr_linear_decay_point)
     state = create_state(seed, tf_adam(schedule_fn), device=dev)
-    step_fn = make_train_step(loss_weights, policy)
+    step_fn = make_train_step(loss_weights, policy, mesh=mesh)
     val_fn = make_val_step(policy)
 
     mgr = CheckpointManager(ckpt_dir, max_to_keep=1)
     start_epoch = 0
     start_batch = 0
+    if mesh is not None:
+        barrier(mesh)  # rank 0's last checkpoint is on disk before any rank reads
     if resume and mgr.latest_step() is not None:
         state.step = load_train_state_(state.model, state.optimizer, mgr.restore())
         start_epoch, start_batch = derive_epoch_batch(state.step, iters)
-        print(f" [*] resumed from step {state.step} "
-              f"(epoch {start_epoch}, batch {start_batch})")
+        if writer:
+            print(f" [*] resumed from step {state.step} "
+                  f"(epoch {start_epoch}, batch {start_batch})")
+    batch_sharding = None
+    if mesh is not None:
+        replicated(mesh, state.model, state.optimizer)
+        batch_sharding = lambda nd: data_sharding(mesh, nd)  # noqa: E731
 
     metrics_path = None
     tb = None
-    if log_dir:
+    if log_dir and writer:
         os.makedirs(log_dir, exist_ok=True)
         metrics_path = os.path.join(log_dir, "metrics.jsonl")
         tb = TBLogger(log_dir)
@@ -154,7 +183,8 @@ def fit(
             skip = start_batch if epoch == start_epoch else 0
             if skip:
                 batches = itertools.islice(batches, skip, None)
-            for idx, batch in enumerate(prefetch_to_device(batches, dev), start=skip):
+            batches = prefetch_to_device(batches, dev, sharding=batch_sharding)
+            for idx, batch in enumerate(batches, start=skip):
                 state, m = step_fn(state, batch)
                 count += 1
                 m = read_metrics(m)
@@ -162,7 +192,7 @@ def fit(
                     sums[k] = sums.get(k, 0.0) + v
                 if hb is not None:
                     hb.beat()  # after the read-back = real device progress
-                if idx % freq_display == 0:
+                if writer and idx % freq_display == 0:
                     print(f"Epoch: [{epoch:3d}], [{idx:4d}/{iters:4d}], "
                           f"time: {(time.time() - t_start) / 60:4.2f}(min), "
                           f"train_PSNR: {m['train_PSNR']:.3f}, "
@@ -178,6 +208,8 @@ def fit(
                 if hb is not None:
                     hb.beat()
             val_means = {k: v / max(val_count, 1) for k, v in val_sums.items()}
+            if not writer:
+                continue
             print(f"######### Validation epoch [{epoch}/{epochs}]: "
                   f"val_PSNR {val_means.get('val_PSNR', float('nan')):.3f} dB, "
                   f"recnLoss {val_means.get('val_recnLoss', float('nan')):.6f} #########",

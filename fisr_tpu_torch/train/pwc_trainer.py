@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from fisr_tpu_torch.convert.params import train_state_tree
+from fisr_tpu_torch.core.mesh import average_gradients_, mean_metrics
 from fisr_tpu_torch.data.flo import write_flo
 from fisr_tpu_torch.data.png_io import write_png
 from fisr_tpu_torch.models import pwcnet
@@ -58,9 +59,13 @@ def create_pwc_state(seed: int, optimizer: Callable[..., TFAdam],
 def make_pwc_train_step(cfg: Optional[pwcnet.PWCNetConfig] = None,
                         policy: Policy = F32, loss_mode: str = "multiscale",
                         gamma: float = 0.0004, q: float = 0.4,
-                        epsilon: float = 0.01):
+                        epsilon: float = 0.01, mesh=None):
     """step(state, batch) -> (state, {'loss'}), the state updated in place.
-    batch: {'x': [B, 2, H, W, 3] in [0,1], 'y': [B, H, W, 2] GT flow}."""
+    batch: {'x': [B, 2, H, W, 3] in [0,1], 'y': [B, H, W, 2] GT flow}.
+
+    With a `mesh`, data-parallel over 'data' as trainer.make_train_step: the
+    batch is this rank's rows, the gradients (the weight decay's, the same
+    on every rank, included) and the loss are averaged over the axis."""
 
     def step_fn(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         model, opt = state.model, state.optimizer
@@ -71,9 +76,13 @@ def make_pwc_train_step(cfg: Optional[pwcnet.PWCNetConfig] = None,
         loss = pwcnet_loss(batch["y"], pyr, list(model.parameters()), mode=loss_mode,
                            gamma=gamma, q=q, epsilon=epsilon)
         loss.backward()
+        metrics = {"loss": loss.detach()}
+        if mesh is not None:
+            average_gradients_(model.parameters(), mesh)
+            metrics = mean_metrics(metrics, mesh)
         opt.step()
         state.step += 1
-        return state, {"loss": loss.detach()}
+        return state, metrics
 
     return step_fn
 

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from fisr_tpu_torch.core.mesh import average_gradients_, mean_metrics
 from fisr_tpu_torch.models import fisrnet
 from fisr_tpu_torch.ops.conv import F32, Policy
 from fisr_tpu_torch.ops.metrics import psnr_image
@@ -187,12 +188,19 @@ def _gt_pyramid(label: torch.Tensor):
 def make_train_step(
     loss_weights: LossWeights = LossWeights(),
     policy: Policy = F32,
+    mesh=None,
 ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """step(state, batch) -> (state, metrics): forward over the 4B window
     rows, the temporal loss, backward, one TFAdam update in place. The batch
     may hold numpy arrays or tensors anywhere; it is moved to the model's
     device. Metrics are 0-dim f32 tensors on that device (the ten loss terms
-    and train_PSNR), detached."""
+    and train_PSNR), detached.
+
+    With a `mesh` (core/mesh) the step is data-parallel over its 'data'
+    axis, the port's form of the JAX step on a sharded batch: `batch` holds
+    this rank's rows (core/mesh.shard_batch), the gradients are averaged
+    over the axis before the update and the metrics are the axes' means,
+    i.e. the global batch's values (every term is a mean over the batch)."""
 
     def step_fn(state: TrainState, batch: Batch):
         model, opt = state.model, state.optimizer
@@ -205,9 +213,13 @@ def make_train_step(
             ovlp = groups_to_overlap(pred_groups[0])
             metrics["train_PSNR"] = torch.mean(psnr_image(ovlp, gt[0]))
         total.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh is not None:
+            average_gradients_(model.parameters(), mesh)
+            metrics = mean_metrics(metrics, mesh)
         opt.step()
         state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, metrics
 
     return step_fn
 

@@ -6,7 +6,9 @@ JAX service takes), both on the TF-oracle generator's weights, f32, 64x64
 frames, one thread. Measured (CPU): the port's window against the JAX
 service's 0 u8 counts (bound 1); the port's stream window against its own
 /v1/window 0 counts (bounds max 1, mean 0.02, the JAX test's); the edge colour
-conversions 0 u8 counts from JAX's (bound 0).
+conversions 0 u8 counts from JAX's (bound 0); a MultiChipService stream over
+two CPU services against the single service's window 0 counts (bound 1, the
+JAX test's).
 """
 
 import concurrent.futures as cf
@@ -34,7 +36,8 @@ from fisr_tpu_torch.cli import serve
 from fisr_tpu_torch.convert import params
 from fisr_tpu_torch.convert.oracle import deterministic_tf_vars
 from fisr_tpu_torch.infer import daemon
-from fisr_tpu_torch.infer.daemon import FISRService, make_server, pack_frames, unpack_frames
+from fisr_tpu_torch.infer.daemon import (FISRService, MultiChipService, make_server, pack_frames,
+                                         unpack_frames)
 
 torch.set_num_threads(1)
 H = W = 64  # 32-multiple and PWC-Net's 64-multiple
@@ -394,6 +397,94 @@ def test_oversized_request_is_413(auth_url):
     assert code == 413 and b"exceeds limit" in body
 
 
+# ---- MultiChipService: one service a device in one process (tests/test_daemon.py)
+
+
+@pytest.fixture(scope="module")
+def multi(trees):
+    ftree, ptree = trees
+    return MultiChipService(params.fisrnet_from_jax(ftree, device="cpu"),
+                            params.pwcnet_from_jax(ptree, device="cpu"), H, W, warmup=False,
+                            devices=["cpu", "cpu"])
+
+
+def test_multichip_routing_and_carry(multi, service):
+    """Streams pin to one service by crc32 (the JAX package's function: the
+    same id lands on the same index); the output equals the single
+    service's window within 1 u8 count (measured 0)."""
+    from fisr_tpu.infer.daemon import MultiChipService as JMultiChipService
+
+    frames = _frames(3, seed=21)
+    svc = multi._for_stream("pinned")
+    assert svc is multi._for_stream("pinned")
+    ids = [f"cam{i}" for i in range(16)]
+    jmulti = object.__new__(JMultiChipService)  # routing only: no services built
+    jmulti.services = [0, 1]
+    assert [multi.services.index(multi._for_stream(i)) for i in ids] == \
+        [jmulti._for_stream(i) for i in ids]
+    out = None
+    for f in frames:
+        out = multi.stream_frame("pinned", f)
+    assert out is not None and len(out) == 3
+    assert "pinned" in svc._streams
+    assert all("pinned" not in s._streams for s in multi.services if s is not svc)
+    for a, b in zip(out, service.window(frames)):
+        assert _u8_diff(a, b)[0] <= 1
+    assert multi.drop_stream("pinned") is True and multi.drop_stream("pinned") is False
+
+
+def test_multichip_window_round_robin(multi):
+    frames = _frames(3, seed=22)
+    before = [s.stats["windows"] for s in multi.services]
+    for _ in range(2 * len(multi.services)):
+        assert len(multi.window(frames)) == 3
+    assert [s.stats["windows"] - b for s, b in zip(multi.services, before)] == [2, 2]
+
+
+def test_multichip_info_and_metrics(multi):
+    info = multi.info()
+    assert info["chips"] == 2 and info["device"] == "cpu"
+    assert info["stats"] == {k: sum(s.stats[k] for s in multi.services)
+                             for k in multi.services[0].stats}
+    assert info["streams"] == sum(len(s._streams) for s in multi.services)
+    text = multi.metrics_text()
+    assert "# TYPE fisr_windows_total counter" in text
+    for i in range(2):
+        assert f'fisr_windows_total{{chip="{i}"}}' in text
+        assert f'fisr_active_streams{{chip="{i}"}}' in text
+
+
+def test_multichip_behind_http(multi):
+    """The same HTTP layer serves a MultiChipService unchanged."""
+    server = make_server(multi, "127.0.0.1", 0)
+    url = _start(server)
+    try:
+        with urllib.request.urlopen(url + "/v1/info") as r:
+            assert json.loads(r.read())["chips"] == 2
+        code, _, body = _post(url + "/v1/window", pack_frames(_frames(3)))
+        assert code == 200 and len(unpack_frames(body)) == 3
+        codes = [_post(url + "/v1/stream/h/frame", pack_frames([f]))[0] for f in _frames(3)]
+        assert codes == [202, 202, 200] and multi.drop_stream("h")
+        with urllib.request.urlopen(url + "/metrics") as r:
+            assert 'chip="1"' in r.read().decode()
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+def test_multichip_gives_each_device_its_own_models(trees):
+    """`.to` moves a module in place: a service on another device than the
+    models' takes a copy, one on the same device the models themselves."""
+    ftree, ptree = trees
+    fisr = params.fisrnet_from_jax(ftree, device="cpu")
+    pwc = params.pwcnet_from_jax(ptree, device="cpu")
+    m = MultiChipService(fisr, pwc, H, W, warmup=False, devices=["cpu", "cpu"])
+    assert all(s.fisr_params is fisr and s.pwc_params is pwc for s in m.services)
+    assert daemon._on(fisr, torch.device("meta")) is not fisr
+    with pytest.raises(ValueError, match="no devices"):
+        MultiChipService(fisr, pwc, H, W, warmup=False, devices=[])
+
+
 # ---- cli/serve
 
 
@@ -407,11 +498,15 @@ def test_serve_parser_carries_the_jax_flags():
                                        "deterministic_weights", "device"}
 
 
-def test_serve_multichip_waits_for_its_slice():
+def test_serve_multichip_waits_for_its_slice(capsys):
+    """The slice it waited for is in: --multichip builds a MultiChipService,
+    one service a visible card; with --device cpu one CPU service."""
     args = serve.build_parser().parse_args(["--height", "64", "--width", "64", "--multichip",
-                                            "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 5b"):
-        serve.build_service(args)
+                                            "--device", "cpu", "--dtype", "float32",
+                                            "--deterministic_weights", "--fisr_grid", "full"])
+    service = serve.build_service(args)
+    assert isinstance(service, MultiChipService) and service.devices == [torch.device("cpu")]
+    assert service.info()["chips"] == 1 and "1 chip(s)" in capsys.readouterr().out
 
 
 def test_serve_cli_starts_and_answers_healthz():
