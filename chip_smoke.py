@@ -11,9 +11,11 @@ Phases (any failure raises and exits non-zero):
 2. kernel - the cost-volume kernels (bf16: mma.sync, f32: FMA) against the
    plain PyTorch version on the card at the five PWC-Net level shapes of a
    1024x1920 window (B=2, d=4), at ragged shapes (d=2 and 4, odd W and H,
-   C=3, 20, 196), and the gradient; the backward kernel against the plain
-   backward (ops/cost_volume.cost_volume_backward) at the ragged shapes, f32
-   and bf16. At the level shapes the kernel is timed
+   C=3, 20, 196), and the gradient; the backward kernels (bwd_f32, bwd_bf16)
+   against the plain backward (ops/cost_volume.cost_volume_backward) at the
+   ragged shapes and at the level shapes of the pwc_train and joint steps,
+   f32 and bf16, each launched twice with the same bits. At the level shapes
+   the forward kernel is timed
    with CUDA events twice: call by call through the wrapper (`ms`, which at
    the small levels is the host's time to launch) and replaying a CUDA graph
    of launches (`graph_ms`, the card's time alone); the plain version call by
@@ -63,8 +65,9 @@ Phases (any failure raises and exits non-zero):
    second fit call resumes from it and must return the saved step and
    parameters bit for bit. The first step's ten loss terms in f32 on the card
    against the same step on the CPU (two samples, rtol 1e-4); repeated steps
-   on one batch must lower total_loss. Prints ms per step in f32 and bf16,
-   samples/s and peak memory.
+   on one batch must lower total_loss. Prints ms per step in f32 (TF32 off,
+   as the F32 policy runs it, and once with PyTorch's TF32 convolutions for
+   the record) and bf16, samples/s and peak memory.
 9. pwc_train - train/pwc_trainer.make_pwc_train_step at full width (PWC-Net
    lg-6-2) on FlowDataset.synthetic_textured, batch 8 of 256x448, multiscale
    loss: 5 cost-volume launches a step, fma_f32 under F32 and mma_bf16 under
@@ -74,9 +77,11 @@ Phases (any failure raises and exits non-zero):
    through the kernels against those through the plain version and its
    autograd (1e-5 of the largest gradient); the loss must fall over repeated
    steps on one batch; make_pwc_eval_step must give a finite EPE. Prints ms
-   per step and, of it, the time inside the cost volume's backward per level,
-   and times the backward alone at the five level shapes: the kernel's
-   graph_ms, card busy time and its caller's wait, against the card busy
+   per step (f32 also with PyTorch's TF32 convolutions, for the record) and,
+   of it, the time inside the cost volume's backward per level, and times
+   the backward alone at the five level shapes: the kernel's graph_ms (by
+   level, beside each level's byte bound), card busy time and its caller's
+   wait, against the card busy
    time, kernel count and caller's wait of the plain version's autograd (the
    baseline). Then pwc_fit for 2 steps with a validation round, the flow
    panel and a checkpoint (20 launches, all mma_bf16; 10 bwd_bf16), and
@@ -107,8 +112,12 @@ Phases (any failure raises and exits non-zero):
    1024x1920 PNG frames, f32, with the trained PWC-Net where phase 12 ran,
    else the converted deterministic one: exactly 20 launches at ss=1 (4
    pairs x 5 levels) and 10 at ss=2, all fma_f32, the kernel against the
-   plain version at their shapes; the .flo bit-equal to
-   flows_for_sequences, warps_for_sequences finite; ms a pair.
+   plain version at their shapes; ss=1 once more with PyTorch's TF32
+   defaults around the call, bit-equal to the first (the entry point sets
+   exact f32 and cuDNN's deterministic algorithms itself); the .flo
+   bit-equal to flows_for_sequences under the same policy,
+   warps_for_sequences finite; ms a pair with cuDNN's default algorithms
+   and with its deterministic ones.
 14. multi - the multi-device layer (core/mesh, infer/serving,
    infer/sharded, the data-parallel steps, MultiChipService) on an NCCL
    group of world size 1 started in this process on a file store (the
@@ -177,6 +186,12 @@ SHRINK_TOL = 1e-6  # stale-halo shrink vs the full ring (f32): equal unless cuDN
 # counts: the halo truncates the receptive field and another conv extent may
 # take another bf16 summation order
 STAGED_MAX_U8, STAGED_MEAN_U8 = 4, 0.03
+# the cost volume's level shapes in a pwc_train step (batch 8 of PWC_CROP) and
+# in a joint step (both flow calls: 2 x B=2 rows of the x2 upscaled 96x96 patch)
+PWC_TRAIN_SHAPES = [(8, PWC_CROP[0] >> lvl, PWC_CROP[1] >> lvl, c)
+                    for lvl, c in LEVEL_CHANNELS.items()]
+JOINT_SHAPES = [(4, (TRAIN_PATCH * FLOW_UPSCALE) >> lvl, (TRAIN_PATCH * FLOW_UPSCALE) >> lvl, c)
+                for lvl, c in LEVEL_CHANNELS.items()]
 
 
 def log(*args):
@@ -253,7 +268,8 @@ def check_cost_volume(kernel, plain, shape, d, dtype, g):
 def check_backward(kernel, shape, d, dtype, g):
     """The backward kernel against the plain backward (cost_volume_backward)
     on random card tensors of `shape`: max |diff| over both gradients, or
-    raises. f32 within 1e-5, bf16 within `bf16_ok`."""
+    raises. f32 within 1e-5, bf16 within `bf16_ok`; a second launch must give
+    the same bits."""
     from fisr_tpu_torch.ops.cost_volume import cost_volume_backward
 
     a = torch.randn(shape, device="cuda", generator=g).to(dtype)
@@ -261,9 +277,13 @@ def check_backward(kernel, shape, d, dtype, g):
     grad = torch.randn(tuple(shape[:3]) + ((2 * d + 1) ** 2,), device="cuda",
                        generator=g).to(dtype)
     got = kernel.cost_volume_backward_cuda(a, b, grad, d)
+    again = kernel.cost_volume_backward_cuda(a, b, grad, d)
     want = cost_volume_backward(a, b, grad, d)
     err = 0.0
-    for x, y in zip(got, want):
+    for x, y, z in zip(got, want, again):
+        if not torch.equal(x, z):
+            raise AssertionError(f"cost-volume backward {tuple(shape)} d={d} {dtype}: two "
+                                 "launches differ")
         x, y = x.float(), y.float()
         err = max(err, (x - y).abs().max().item())
         ok = (torch.allclose(x, y, rtol=1e-5, atol=1e-5) if dtype == torch.float32
@@ -356,10 +376,12 @@ def phase_kernel():
     for dtype in (torch.float32, torch.bfloat16):
         for shape, d in ragged:
             max_err = max(max_err, check_cost_volume(kernel, plain, shape, d, dtype, g)[0])
-    # the backward kernel against the plain backward at the ragged shapes
+    # the backward kernel against the plain backward at the ragged shapes and
+    # the level shapes of the pwc_train and joint steps
     bwd_err = 0.0
+    bwd_shapes = ragged + [(s, D) for s in PWC_TRAIN_SHAPES + JOINT_SHAPES]
     for dtype in (torch.float32, torch.bfloat16):
-        for shape, d in ragged:
+        for shape, d in bwd_shapes:
             bwd_err = max(bwd_err, check_backward(kernel, shape, d, dtype, g))
     a = torch.randn((1, 8, 12, 4), device=dev, generator=g, requires_grad=True)
     b = torch.randn((1, 8, 12, 4), device=dev, generator=g, requires_grad=True)
@@ -368,8 +390,8 @@ def phase_kernel():
     for x, y in zip(gk, gp):
         torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
     log(f"[kernel] all shapes and the gradient agree; max |diff| {max_err}; the backward "
-        f"kernel against the plain backward at the ragged shapes, f32 and bf16: max |diff| "
-        f"{bwd_err}")
+        f"kernels (bwd_f32, bwd_bf16) against the plain backward at the ragged, pwc_train and "
+        f"joint shapes, each launched twice with the same bits: max |diff| {bwd_err}")
     return max_err, levels, bwd_err
 
 
@@ -932,6 +954,18 @@ def phase_eval(fisr, tmp):
     return sec_per_frame, peak_gib
 
 
+@contextlib.contextmanager
+def torch_tf32_defaults():
+    """PyTorch's own settings inside the block, which this script turns off at
+    its start: TF32 for cuDNN's convolutions (not for cuBLAS's products)."""
+    old = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+
+
 def wall_ms(fn, reps=3, warmup=1):
     """Host clock around `reps` calls that end in a synchronise: a training
     step's time as its caller sees it."""
@@ -1059,6 +1093,9 @@ def phase_train(tmp):
         peak = torch.cuda.max_memory_allocated() / 2**30
         busy, kernels = device_busy(lambda: step(card, dev_batch))
         out[name] = {"ms": ms, "peak_gib": peak, "busy_ms": busy, "kernels": kernels}
+        if name == "f32":  # for the record: the same step with TF32 convolutions
+            with torch_tf32_defaults():
+                out[name]["ms_tf32"] = wall_ms(lambda: step(card, dev_batch))
     from fisr_tpu_torch.train.loop import read_metrics
 
     _, m = step32(card, dev_batch)
@@ -1071,6 +1108,8 @@ def phase_train(tmp):
         + "; ".join(f"{n} {o['ms']:.2f} ms a step ({1e3 * batch_size / o['ms']:.1f} samples/s, peak "
                     f"{o['peak_gib']:.2f} GiB, card busy {o['busy_ms']:.2f} ms in "
                     f"{o['kernels']:.0f} kernels)" for n, o in out.items())
+        + f"; f32 as its policy runs it (TF32 off), and with PyTorch's TF32 convolutions "
+          f"{out['f32']['ms_tf32']:.2f} ms a step"
         + f"; one stacked read-back of the 11 metrics {readback_ms:.3f} ms")
 
 
@@ -1109,9 +1148,10 @@ def cv_backward(kernel, shapes, dtype, g):
         busy, kernels = device_busy(lambda: [call() for call in calls])
         out[impl] = {"ms": wall, "busy_ms": busy, "kernels": kernels}
         if impl == "kernel":
-            out[impl]["graph_ms"] = sum(
-                graph_time_ms(lambda: kernel.cost_volume_backward_cuda(a, b, grad, D))
-                for a, b, grad in graphs)
+            by_shape = [graph_time_ms(lambda: kernel.cost_volume_backward_cuda(a, b, grad, D))
+                        for a, b, grad in graphs]
+            out[impl]["graph_ms_by_shape"] = by_shape
+            out[impl]["graph_ms"] = sum(by_shape)
     return out
 
 
@@ -1181,6 +1221,10 @@ def phase_pwc_train(tmp):
         torch.cuda.reset_peak_memory_stats()
         ms = wall_ms(lambda: step(state, batch))
         peak = torch.cuda.max_memory_allocated() / 2**30
+        ms_tf32 = None
+        if name == "f32":  # for the record: the same step with TF32 convolutions
+            with torch_tf32_defaults():
+                ms_tf32 = wall_ms(lambda: step(state, batch))
 
         # of a step, the time inside the cost volume's backward, by level
         events, orig = [], kernel._CostVolume.backward
@@ -1211,12 +1255,14 @@ def phase_pwc_train(tmp):
         busy, kernels = device_busy(lambda: step(state, batch))
         steps[name] = {"ms": ms, "busy_ms": busy, "kernels": kernels, "peak_gib": peak,
                        "inside_backward_ms": inside, "launches": launches,
-                       "bwd_launches": bwd_launches}
+                       "bwd_launches": bwd_launches, "ms_tf32": ms_tf32}
         log(f"[pwc_train] {name}: 5 {variant} and 5 bwd_{name} launches a step, the kernels "
             f"against the plain versions at their shapes {[list(s) for s in level_shapes]}: max "
             f"|diff| {errs[name]:.3g} forward, {bwd_errs[name]:.3g} backward; loss {losses[0]:.4f} -> "
             f"{losses[-1]:.4f} over 6 steps on one batch; eval EPE {epe:.4f}; {ms:.2f} ms a step "
-            f"(batch 8 of {h}x{w}, {8e3 / ms:.1f} samples/s), peak {peak:.2f} GiB, card busy "
+            + (f"(TF32 off, as the F32 policy runs it; {ms_tf32:.2f} with PyTorch's TF32 "
+               f"convolutions) " if ms_tf32 is not None else "")
+            + f"(batch 8 of {h}x{w}, {8e3 / ms:.1f} samples/s), peak {peak:.2f} GiB, card busy "
             f"{busy:.2f} ms in {kernels:.0f} kernels; inside the "
             f"cost volume's backward {inside:.2f} ms a step ({100 * inside / ms:.0f} %), by level "
             + ", ".join(f"{lvl}: {by_level[lvl]:.2f}" for lvl in sorted(by_level)))
@@ -1231,7 +1277,10 @@ def phase_pwc_train(tmp):
             f"levels: kernel graph_ms {k['graph_ms']:.4f}, card busy {k['busy_ms']:.4f} ms in "
             f"{k['kernels']:.0f} kernels, {k['ms']:.3f} ms as its caller waits; plain version's "
             f"autograd card busy {p['busy_ms']:.3f} ms in {p['kernels']:.0f} kernels, "
-            f"{p['ms']:.3f} ms as its caller waits")
+            f"{p['ms']:.3f} ms as its caller waits; by level, graph_ms against the byte bound: "
+            + ", ".join(f"{lvl}: {t:.4f} / {cv_bwd_bound_ms(s, dtype)[0]:.4f}"
+                        for lvl, t, s in zip(LEVEL_CHANNELS, k["graph_ms_by_shape"],
+                                             level_shapes)))
 
     # the step-driven loop and the per-sample report, as a user calls them
     ckpt, preds = os.path.join(tmp, "pwc_ckpt"), os.path.join(tmp, "pwc_preds")
@@ -1489,26 +1538,15 @@ def trained_main_path(fisr, pwc, folder, tmp, source):
     return {"launches": launches, "steady": steady, "flow_err": err, "flow_scale": scale}
 
 
-@contextlib.contextmanager
-def cudnn_deterministic():
-    """cuDNN's deterministic algorithms inside the block: the transposed
-    convolutions of PWC-Net's upsampling otherwise may add in another order
-    from one call to the next."""
-    old = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = old
-
-
 def phase_prepare(pwc, which, ckpt_dir, tmp):
     """cli/prepare's test-set flow precompute on one scene of 5 frames at the
     main path's size, f32; returns the launches at ss=1 and ss=2, the
-    largest kernel-vs-plain |diff| at their shapes and the ms a pair."""
+    largest kernel-vs-plain |diff| at their shapes and the ms a pair, with
+    cuDNN's default algorithms and with its deterministic ones."""
     from fisr_tpu_torch.cli import prepare
     from fisr_tpu_torch.data import flo
     from fisr_tpu_torch.data.png_io import read_png, write_png
+    from fisr_tpu_torch.device import cudnn_deterministic, exact_f32
     from fisr_tpu_torch.infer.video import make_flow_fn
     from fisr_tpu_torch.kernels import cost_volume as kernel
     from fisr_tpu_torch.ops.conv import F32
@@ -1519,28 +1557,39 @@ def phase_prepare(pwc, which, ckpt_dir, tmp):
     for i, fr in enumerate(synthetic_frames(5, h, w, seed=5)):
         write_png(fr, os.path.join(scene, f"frame_{i:03d}.png"))
     launches, seen_all, walls = {}, [], {}
-    for ss in (1, 2):
-        out = os.path.join(tmp, f"prepare_ss{ss}.flo")
+    # ss=1 and ss=2 under this script's global setting (TF32 off), then ss=1
+    # again with PyTorch's TF32 defaults around the call: the entry point sets
+    # its own f32 and determinism, so the two ss=1 files must be the same bits
+    runs = (("ss1", 1, contextlib.nullcontext), ("ss2", 2, contextlib.nullcontext),
+            ("ss1_tf32_defaults", 1, torch_tf32_defaults))
+    for tag, ss, around in runs:
+        out = os.path.join(tmp, f"prepare_{tag}.flo")
         torch.cuda.synchronize()
         reset_launches(kernel)
         t0 = time.perf_counter()
-        with recorded_launches(kernel) as (seen, _), cudnn_deterministic():
+        with recorded_launches(kernel) as (seen, _), around():
             prepare.main(["flow-from-pngs", "--png_dir", scene, "--out", out,
                           "--pwc_ckpt", ckpt_dir, "--ss", str(ss)])
         torch.cuda.synchronize()
-        walls[ss] = time.perf_counter() - t0
+        walls[tag] = time.perf_counter() - t0
         want = 20 if ss == 1 else 10
-        require_launches(kernel, f"prepare flow-from-pngs --ss {ss}", want=want, variant="fma_f32")
-        launches[ss], seen_all = kernel.LAUNCHES, seen_all + seen
+        require_launches(kernel, f"prepare flow-from-pngs --ss {ss} ({tag})", want=want,
+                         variant="fma_f32")
+        launches[tag], seen_all = kernel.LAUNCHES, seen_all + seen
     hh, ww = h * FLOW_UPSCALE, w * FLOW_UPSCALE
     err = check_recorded(kernel, seen_all, [(2, hh >> lvl, ww >> lvl, c)
-                                            for lvl, c in LEVEL_CHANNELS.items()] * 6,
+                                            for lvl, c in LEVEL_CHANNELS.items()] * 10,
                          "prepare", seed=9)
+    written = flo.read_flo_5dim(os.path.join(tmp, "prepare_ss1.flo"))
+    again = flo.read_flo_5dim(os.path.join(tmp, "prepare_ss1_tf32_defaults.flo"))
+    if not np.array_equal(written, again):
+        raise AssertionError(f"prepare under PyTorch's TF32 defaults differs from the run under "
+                             f"TF32 off: max |diff| {np.abs(written - again).max()}")
     seqs = np.stack([read_png(os.path.join(scene, f"frame_{i:03d}.png"))
                      for i in range(5)])[None].astype(np.float32)
-    with cudnn_deterministic():
+    # the library function under the package's policy equals what the CLI wrote
+    with exact_f32(), cudnn_deterministic():
         flows = prepare.flows_for_sequences(pwc, seqs, 1)
-    written = flo.read_flo_5dim(os.path.join(tmp, "prepare_ss1.flo"))
     if written.shape != (1, 8, h, w, 2) or not np.array_equal(written, flows):
         raise AssertionError(f"prepare .flo {written.shape} differs from flows_for_sequences "
                              f"{flows.shape}: max |diff| {np.abs(written - flows).max()}")
@@ -1549,14 +1598,19 @@ def phase_prepare(pwc, which, ckpt_dir, tmp):
         raise AssertionError(f"prepare warps: shape {warps.shape} or non-finite values")
     flow_fn = make_flow_fn(pwc.cfg, F32)
     a, b = (torch.from_numpy(seqs[0, i:i + 1]).cuda() for i in (0, 1))
-    pair_ms = time_ms(lambda: flow_fn(pwc, a, b), reps=5, warmup=1)
+    pair_ms = {"default": time_ms(lambda: flow_fn(pwc, a, b), reps=5, warmup=1)}
+    with cudnn_deterministic():
+        pair_ms["deterministic"] = time_ms(lambda: flow_fn(pwc, a, b), reps=5, warmup=1)
     log(f"[prepare] flow-from-pngs on 5 frames of {h}x{w} with the {which} PWC-Net, f32: "
-        f"{launches[1]} cost-volume launches at ss=1 ({walls[1]:.2f} s, PNG decode included), "
-        f"{launches[2]} at ss=2 ({walls[2]:.2f} s), all fma_f32; the kernel against the plain "
-        f"version at their shapes: max |diff| {err}; .flo bit-equal to flows_for_sequences "
-        f"(both under cuDNN's deterministic algorithms); warps finite; {pair_ms:.2f} ms a pair "
-        "(flow, f32, cuDNN's defaults). build_corpus writes .mat (h5py) and stays on the CPU: "
-        "not run here")
+        f"{launches['ss1']} cost-volume launches at ss=1 ({walls['ss1']:.2f} s, PNG decode "
+        f"included), {launches['ss2']} at ss=2 ({walls['ss2']:.2f} s), all fma_f32; the kernel "
+        f"against the plain version at their shapes: max |diff| {err}; ss=1 again with "
+        f"PyTorch's TF32 defaults around the call ({walls['ss1_tf32_defaults']:.2f} s): the "
+        f"same bits; the .flo bit-equal to flows_for_sequences under exact_f32 and "
+        f"cudnn_deterministic; warps finite; a pair (flow, f32, TF32 off) "
+        f"{pair_ms['default']:.2f} ms with cuDNN's default algorithms, "
+        f"{pair_ms['deterministic']:.2f} ms with its deterministic ones (what cli/prepare "
+        "runs). build_corpus writes .mat (h5py) and stays on the CPU: not run here")
     return launches, err, pair_ms
 
 
@@ -1591,6 +1645,7 @@ def multi_device(fisr, pwc, tmp):
     from fisr_tpu_torch.core import mesh
     from fisr_tpu_torch.data.flow_dataset import FlowDataset
     from fisr_tpu_torch.data.synth import synthetic_store
+    from fisr_tpu_torch.device import cudnn_deterministic
     from fisr_tpu_torch.infer import serving, sharded
     from fisr_tpu_torch.infer.daemon import (FISRService, MultiChipService, make_server,
                                              pack_frames, unpack_frames)
@@ -1832,6 +1887,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    # the entry points set exact f32 themselves (fisr_tpu_torch/device.py);
+    # the phases below also call library functions directly under F32, and
+    # hold them to the same f32 ([prepare] checks an entry point with
+    # PyTorch's defaults restored around it)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1925,8 +1984,11 @@ def main() -> int:
                            "joint_step": launches_joint,
                            "pwc_train_step_dp": multi["launches"]["pwc_train_step_dp"]},
         # cli/prepare flow-from-pngs, one scene of 5 frames of 1024x1920
-        "launches_prepare": {"ss1": launches_prepare[1], "ss2": launches_prepare[2]},
-        "prepare_pair_ms": prepare_pair_ms,
+        "launches_prepare": {"ss1": launches_prepare["ss1"], "ss2": launches_prepare["ss2"]},
+        # an f32 flow pair at 1024x1920 with cuDNN's default algorithms, and
+        # with its deterministic ones (what cli/prepare runs)
+        "prepare_pair_ms": prepare_pair_ms["default"],
+        "prepare_pair_deterministic_ms": prepare_pair_ms["deterministic"],
         # the inference level shapes, the ragged shapes, the training and prepare shapes
         "max_abs_err": max([r["f32_err"] for r in levels] + [pwc_train["errs"]["f32"],
                                                              err_prepare, multi["err_f32"]]),
@@ -1940,8 +2002,8 @@ def main() -> int:
     }, {
         "name": "cost_volume_backward", "route": "cuda", "variants": ["bwd_f32", "bwd_bf16"],
         "source": "fisr_tpu_torch/csrc/cost_volume.cu",
-        # the TPU kernel's VJP (an XLA composition in the JAX package)
-        "replaces": "fisr_tpu/kernels/cost_volume_pallas.py:77",
+        # the TPU kernel's VJP, _cv_bwd (an XLA composition in the JAX package)
+        "replaces": "fisr_tpu/kernels/cost_volume_pallas.py:81",
         "launches": pwc_train["steps"]["f32"]["bwd_launches"],
         "launches_train": {"pwc_train_step": pwc_train["steps"]["f32"]["bwd_launches"],
                            "joint_step": bwd_launches_joint["both"],
@@ -1954,6 +2016,11 @@ def main() -> int:
         # one backward at each of the five pwc_train level shapes, f32 (bf16 beside)
         "ms": backward["f32"]["kernel"]["ms"],
         "graph_ms": backward["f32"]["kernel"]["graph_ms"],
+        # levels 2..6 of the pwc_train step: graph_ms, and the byte bound
+        "graph_ms_by_level": dict(zip(LEVEL_CHANNELS,
+                                      backward["f32"]["kernel"]["graph_ms_by_shape"])),
+        "bound_ms_by_level": {lvl: cv_bwd_bound_ms(s, torch.float32)[0]
+                              for lvl, s in zip(LEVEL_CHANNELS, pwc_shapes)},
         "busy_ms": backward["f32"]["kernel"]["busy_ms"],
         "kernels": backward["f32"]["kernel"]["kernels"],
         "plain_ms": backward["f32"]["plain"]["ms"],
@@ -1964,6 +2031,8 @@ def main() -> int:
                                    for s in pwc_shapes) else "operations",
         "bf16": {"ms": backward["bf16"]["kernel"]["ms"],
                  "graph_ms": backward["bf16"]["kernel"]["graph_ms"],
+                 "graph_ms_by_level": dict(zip(LEVEL_CHANNELS,
+                                               backward["bf16"]["kernel"]["graph_ms_by_shape"])),
                  "busy_ms": backward["bf16"]["kernel"]["busy_ms"],
                  "plain_busy_ms": backward["bf16"]["plain"]["busy_ms"],
                  "bound_ms": sum(cv_bwd_bound_ms(s, torch.bfloat16)[0] for s in pwc_shapes)},

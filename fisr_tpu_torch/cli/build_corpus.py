@@ -17,7 +17,9 @@ artifact in the reference's on-disk formats:
 
 Frames may be RGB (converted to YUV with the MATLAB constants, like the
 reference datasets) or already YUV (--yuv). The .mat files go through
-data/matio, which needs h5py.
+data/matio, which needs h5py. `main` runs without TF32 and with cuDNN's
+deterministic algorithms (device.exact_f32, device.cudnn_deterministic), so a
+corpus built twice from the same frames and seed is the same bits.
 
 Usage:
   python -m fisr_tpu_torch.cli.build_corpus --frames ./frames_4k --out ./data/train \\
@@ -109,7 +111,7 @@ def build_corpus(frame_paths, out_dir: str, n_samples: int, patch: int = 96, *, 
 def main(argv=None):
     from fisr_tpu_torch.cli.prepare import load_pwc
     from fisr_tpu_torch.data.png_io import list_pngs
-    from fisr_tpu_torch.device import resolve_device
+    from fisr_tpu_torch.device import cudnn_deterministic, exact_f32, resolve_device
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--frames", required=True, help="folder of consecutive PNGs")
@@ -131,9 +133,11 @@ def main(argv=None):
         raise SystemExit("no pwc weights: pass --pwc_ckpt (a checkpoint directory; "
                          "python -m fisr_tpu_torch.convert.cli converts TF1 and orbax ones)")
     device = resolve_device(args.device)
-    return build_corpus(list_pngs(args.frames), args.out, args.samples, args.patch,
-                        pwc=load_pwc(args.pwc_ckpt, device), is_yuv=args.yuv, seed=args.seed,
-                        stride=args.stride, device=device)
+    # a corpus is f32 without TF32, and the same bits every time it is built
+    with exact_f32(), cudnn_deterministic():
+        return build_corpus(list_pngs(args.frames), args.out, args.samples, args.patch,
+                            pwc=load_pwc(args.pwc_ckpt, device), is_yuv=args.yuv,
+                            seed=args.seed, stride=args.stride, device=device)
 
 
 if __name__ == "__main__":

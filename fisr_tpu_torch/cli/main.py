@@ -289,21 +289,23 @@ def run_video(args, device):
 
 def main(argv=None):
     args = parse_args(argv)
-    from fisr_tpu_torch.device import resolve_device
+    from fisr_tpu_torch.device import f32_scope, resolve_device
 
     device = resolve_device(args.device)
     print(f"Model: {args.net_type}, phase: {args.phase}, exp: {args.exp_num}")
-    if args.phase == "train":
-        run_train(args, device)
-        print("[*] Training finished! Testing starts")
-        # the trained weights, whatever weights the flags name
-        args.fisr_params_npz, args.deterministic_weights = None, False
-        result = run_test(args, device)
-    elif args.phase == "test":
-        # the runners, the pipeline's stages and the metrics turn autograd off themselves
-        result = run_test(args, device)
-    else:
-        result = run_video(args, device)
+    # --compute_dtype float32: the whole phase without TF32 (fisr_tpu_torch/device.py)
+    with f32_scope(_policy(args)):
+        if args.phase == "train":
+            run_train(args, device)
+            print("[*] Training finished! Testing starts")
+            # the trained weights, whatever weights the flags name
+            args.fisr_params_npz, args.deterministic_weights = None, False
+            result = run_test(args, device)
+        elif args.phase == "test":
+            # the runners, the pipeline's stages and the metrics turn autograd off themselves
+            result = run_test(args, device)
+        else:
+            result = run_video(args, device)
     print(f"[*] {args.phase} finished!")
     return result
 

@@ -15,7 +15,9 @@ positions (2i, 2i+1), so sliding window w consumes flows [4w : 4w+8) merged
 channels, what Tensor_slicer_recurrent_flow expects (ops.py:99-106). Flows
 and warps run on `device` (infer/video.make_flow_fn under the F32 policy,
 one cost-volume launch a pyramid level a pair, and make_warp_fn); the .mat
-commands read and write through data/matio, which needs h5py.
+commands read and write through data/matio, which needs h5py. `main` runs
+without TF32 and with cuDNN's deterministic algorithms (device.exact_f32,
+device.cudnn_deterministic), so a corpus prepared twice is the same bits.
 
 Usage:
   python -m fisr_tpu_torch.cli.prepare flow-from-pngs --png_dir D --out f.flo --pwc_ckpt C
@@ -34,7 +36,7 @@ import argparse
 import numpy as np
 import torch
 
-from fisr_tpu_torch.device import resolve_device
+from fisr_tpu_torch.device import cudnn_deterministic, exact_f32, resolve_device
 
 __all__ = ["main", "flows_for_sequences", "warps_for_sequences", "load_pwc"]
 
@@ -120,21 +122,26 @@ def main(argv=None):
                              "python -m fisr_tpu_torch.convert.cli converts TF1 and orbax ones)")
         return load_pwc(args.pwc_ckpt, device)
 
-    if args.cmd == "flow-from-pngs":
-        paths = list_pngs(args.png_dir)
-        k = args.frames_per_scene
-        seqs = np.stack([
-            np.stack([read_png(p) for p in paths[i:i + k]])
-            for i in range(0, len(paths) - k + 1, k)
-        ]).astype(np.float32)
-        flo_io.write_flo_5dim(flows_for_sequences(pwc(), seqs, args.ss, device=device), args.out)
-    elif args.cmd == "flow-from-mat":
-        seqs = matio.read_train_mat(args.mat, "LR_data") * 255.0
-        flo_io.write_flo_5dim(flows_for_sequences(pwc(), seqs, args.ss, device=device), args.out)
-    else:  # warp-from-mat
-        seqs = matio.read_train_mat(args.mat, "LR_data") * 255.0
-        flows = flo_io.read_flo_5dim(args.flo)
-        matio.write_warp_mat(warps_for_sequences(seqs, flows, args.ss, device=device), args.out)
+    # a corpus is f32 without TF32, and the same bits every time it is prepared
+    with exact_f32(), cudnn_deterministic():
+        if args.cmd == "flow-from-pngs":
+            paths = list_pngs(args.png_dir)
+            k = args.frames_per_scene
+            seqs = np.stack([
+                np.stack([read_png(p) for p in paths[i:i + k]])
+                for i in range(0, len(paths) - k + 1, k)
+            ]).astype(np.float32)
+            flo_io.write_flo_5dim(flows_for_sequences(pwc(), seqs, args.ss, device=device),
+                                  args.out)
+        elif args.cmd == "flow-from-mat":
+            seqs = matio.read_train_mat(args.mat, "LR_data") * 255.0
+            flo_io.write_flo_5dim(flows_for_sequences(pwc(), seqs, args.ss, device=device),
+                                  args.out)
+        else:  # warp-from-mat
+            seqs = matio.read_train_mat(args.mat, "LR_data") * 255.0
+            flows = flo_io.read_flo_5dim(args.flo)
+            matio.write_warp_mat(warps_for_sequences(seqs, flows, args.ss, device=device),
+                                 args.out)
     print(f"[*] wrote {args.out}")
 
 

@@ -17,7 +17,8 @@ tensorstore), so by default the repo's trained <checkpoint_dir>/pwcnet
 loads as in the JAX CLI. As the JAX serve parser, this one has no TF1 bundle
 flag. --multichip serves from every visible card, one service a card in this
 process (infer/daemon.MultiChipService); with --device cpu it is one CPU
-service.
+service. Under --dtype float32 the service computes without TF32
+(FISRService sets the flags around each device call).
 """
 
 from __future__ import annotations

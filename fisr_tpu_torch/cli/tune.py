@@ -42,6 +42,7 @@ def main(argv=None) -> dict:
 
     import torch
 
+    from fisr_tpu_torch.device import f32_scope
     from fisr_tpu_torch.infer.autotune import DEFAULT_CACHE_PATH, TuneCache
     from fisr_tpu_torch.models.fisrnet import FISRnet
     from fisr_tpu_torch.ops.conv import BF16, F32
@@ -52,8 +53,10 @@ def main(argv=None) -> dict:
         model = model.to(torch.bfloat16)  # serving casts once at load
 
     cache = TuneCache(args.cache or DEFAULT_CACHE_PATH, device=args.device)
-    grid = cache.tune(model, args.height, args.width, policy=policy, boundary=args.boundary,
-                      reps=args.reps, max_gh=args.max_gh, max_gw=args.max_gw, verbose=True)
+    # --dtype float32 times the plans without TF32, as serving runs them
+    with f32_scope(policy):
+        grid = cache.tune(model, args.height, args.width, policy=policy, boundary=args.boundary,
+                          reps=args.reps, max_gh=args.max_gh, max_gw=args.max_gw, verbose=True)
     plan = cache.best_plan(args.height, args.width, args.dtype, args.boundary)
     rec = {
         # None when every pad-free candidate ran out of memory: the frame is

@@ -14,8 +14,8 @@
 // the byte time only on the tensor cores: at the f32 FMA peak (67 TFLOP/s)
 // they alone take as long as the bf16 bytes at C = 32 and longer from C = 64.
 //
-// Two forward kernels, chosen by type alone (never by whether a launch
-// succeeded), and one backward kernel for both types:
+// Two forward kernels and two backward kernels, chosen by type alone (never
+// by whether a launch succeeded):
 //
 // bf16: cost_volume_kernel_mma_bf16, a banded matrix product. For one output
 //   row, one dy and 8 consecutive pixels x0..x0+7, the 8 x (2d+1) costs are a
@@ -80,19 +80,61 @@
 //     write-out together when every block staged its first pass cold).
 //   Each (pixel, shift) is summed with FMAs in channel order within a split.
 //
-// backward: cost_volume_bwd_kernel, both input gradients of the cost volume,
+// backward: both input gradients of the cost volume, in one launch,
 //
 //   dc1[b,y,x,c] = (1/C) sum_k g[b,y,x,k] * c2[b,y+dy,x+dx,c]
 //   dc2[b,y,x,c] = (1/C) sum_k g[b,y-dy,x-dx,k] * c1[b,y-dy,x-dx,c]
 //
-//   in gather form: each output element is summed by one thread in f32 (no
-//   atomics, deterministic) and cast once. The JAX package's VJP (_cv_bwd,
-//   cost_volume_pallas.py:77-89) is an XLA composition of 81 shifted products;
-//   here a block owns 32 pixels x 32 channels of one row of one gradient and,
-//   for each dy, stages the other input's row (32+2d pixels) and the 2d+1
-//   values of g that dy needs per pixel in shared memory. One launch computes
-//   both gradients (or the one asked for). Bound by bytes (g, c1, c2 read
-//   once, dc1, dc2 written once); simple first, no tensor cores.
+//   for k = (dy+d)(2d+1)+(dx+d). It stands for the JAX package's VJP of the
+//   TPU kernel (_cv_bwd, fisr_tpu/kernels/cost_volume_pallas.py:81-86), an XLA
+//   composition of 81 shifted products. Each output element is summed in f32
+//   by one thread (no atomics: the same bits every run). What bounds it on
+//   this card: bytes, g, c1 and c2 read once and dc1 and dc2 written once
+//   (81 + 4C values a pixel); the 4*81*C FMAs a pixel take about as long at
+//   the f32 FMA peak, so the design keeps shared-memory loads per FMA low.
+//
+// f32: cost_volume_bwd_f32, source rows streamed through register tiles:
+//   * a block owns a tile of r output rows (r or 2r for dc2) x tx pixels (tx <=
+//     32, sized to W so that narrow levels waste no pixel slots) x one chunk
+//     of 4*cq channels of one gradient, and walks the source rows the tile
+//     needs in order (rows outside the frame skipped): c2 rows for dc1, c1
+//     rows and g rows together for dc2. So a source row comes from L2 about
+//     (rows + 2d)/rows times, where a gather by dy fetched it 2d+1 times.
+//     dc2's blocks come first in the grid: theirs is the longer work;
+//   * staging is a two-stage cp.async ring (the next row's copies fly while
+//     this row is summed): raw NHWC runs of the chunk's channels, 16 bytes a
+//     copy where C % 4 == 0 and the bases are 16-byte aligned (4 bytes
+//     otherwise), halo zeros from copies of source size 0; g as contiguous
+//     pixel runs (a pixel's 81 values are contiguous), one run a row in
+//     16-byte copies with 4-byte copies at its two ends, placed in shared
+//     memory at the run's own 16-byte phase. For dc1 the tile's r g rows are
+//     staged once with the first source row; for dc2 each source row brings
+//     its g row, and the g of pixels outside the frame is stored as zeros;
+//   * register tiles: a thread keeps r consecutive pixels x 4 channels (a
+//     float4) for each of its rows, across all (2d+1)^2 displacements. For
+//     each staged row it reads the r + 2d staged pixels it needs as float4s
+//     once and adds them into every output row the staged row touches, with
+//     g as shared-memory broadcasts (the channel lanes of a pixel read one
+//     address). The tiles (r = 2 or 1; dc2's rows r or 2r) are the coarsest
+//     whose threads give each SM 8 warps or more. Of the tiles tried on the
+//     H100 at the training levels (4 x 4, 2 x 2, 1 x 1 for both gradients,
+//     dc2's rows 1, 2 or 4 times dc1's; two or three stages), these were the
+//     fastest or near it at every level. dc2 alone took most of the time
+//     with equal tiles, hence its taller ones;
+//   * small levels fill the card by splitting the output channels over
+//     blocks: each output channel is independent (the sum is over
+//     displacements), so the split needs no reduction. The chunk shrinks
+//     (32, 16, 8, 4 channels) until every level launches two blocks an SM; a
+//     block has one warp at least, for the staging;
+//   * the tile is scaled by 1/C once and written out once, float4s where C
+//     % 4 == 0.
+//   Sums run in source-row order, then staged-pixel order: the plain
+//   version's (dy, dx) order for dc1, another order for dc2.
+//
+// bf16: cost_volume_bwd_kernel<D, __nv_bfloat16>, the first design: a
+//   block owns 32 pixels x 32 channels of one row of one gradient and, for
+//   each dy, stages the other input's row (32+2d pixels) and the 2d+1 values
+//   of g that dy needs per pixel in shared memory; converted to f32 there.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -651,7 +693,7 @@ cudaError_t launch_fma_f32(const void* c1, const void* c2, void* out, int B, int
   return launch_fma_f32_vec<D, 1>(a, b, o, B, H, W, C, stream);
 }
 
-// ---- backward: both input gradients, gathered ---------------------------------
+// ---- backward, bf16: both input gradients, gathered a row at a time -----------
 
 constexpr int BTX = 32;                      // output pixels per block
 constexpr int BKC = 32;                      // output channels per block: a warp's lanes
@@ -757,6 +799,380 @@ cudaError_t launch_bwd(const void* c1, const void* c2, const void* g, void* dc1,
   return cudaGetLastError();
 }
 
+// ---- backward, f32: streamed source rows, register tiles ----------------------
+
+constexpr int BTILE_PX = 32;  // pixels of a tile row, at most
+constexpr int BMAX_CQ = 8;    // channel quads of a block, at most: 32 channels
+constexpr int BMIN_THREADS = 32;  // a block stages with one warp at least
+constexpr int BSTAGES = 2;        // source rows in the cp.async ring: 1 in flight (3 was no faster)
+
+// The register tile of a thread: tr consecutive pixels x 4 channels for
+// each of its output rows, tr rows for dc1 and m * tr for dc2 (whose source
+// rows bring their g rows: taller tiles stage each g row fewer times, where
+// dc1 keeps its tile's g rows in shared memory). tr = 2 reads a staged float4
+// for 2 to 8 sums of it; tr = 1 and m = 1 spread smaller levels over more
+// threads. (4 x 4 for both gradients was no faster than 2 x 2: fewer warps
+// an SM.)
+template <int TR, int M>
+struct BwdTile {
+  static constexpr int P = TR;
+  static constexpr int R1 = TR, R2 = M * TR;
+  static constexpr int MAX_THREADS = BTILE_PX / P * BMAX_CQ;
+};
+
+// The launch plan of cost_volume_bwd_f32.
+struct BwdPlan {
+  int r1, r2;       // tile rows of dc1 and of dc2
+  int pg, cq;       // pixel groups, channel quads: pg * cq threads compute
+  int cq_log2;
+  int threads;      // at least BMIN_THREADS
+  int tiles_x, tiles_y1, tiles_y2, chunks;
+  int tx, s;        // tile width in pixels; floats a staged pixel of c (4 cq + 4)
+  int g_row;        // floats a staged g row of dc2: (tx + 2d) x 81 + its 16-byte phase
+  int g_tile_row;   // floats a g row of dc1's tile: tx x 81 + its 16-byte phase
+  int smem_floats;
+  int cvec, gvec;   // 16-byte copies of c1/c2 (and float4 stores), of g
+  int64_t blocks1, blocks2;  // tiles x chunks of dc1 and of dc2 (0 where not asked for)
+};
+
+inline int round4(int v) { return (v + 3) / 4 * 4; }
+
+// Tiles: rows of r1 (dc1) or r2 (dc2), columns of at most 32 pixels, as even
+// as W allows, in whole pixel groups of p. Channels: the smallest
+// power-of-two count of quads (up to 8) that covers C, halved while the
+// launch gives fewer than two blocks an SM.
+inline BwdPlan bwd_plan(int B, int H, int W, int C, int d, bool need1, bool need2, int sms,
+                        int r1, int r2, int p) {
+  BwdPlan pl;
+  pl.r1 = r1;
+  pl.r2 = r2;
+  pl.tiles_x = (W + BTILE_PX - 1) / BTILE_PX;
+  const int tx = (W + pl.tiles_x - 1) / pl.tiles_x;
+  pl.pg = (tx + p - 1) / p;
+  pl.tx = pl.pg * p;
+  pl.tiles_y1 = (H + r1 - 1) / r1;
+  pl.tiles_y2 = (H + r2 - 1) / r2;
+  const int64_t tiles1 = need1 ? static_cast<int64_t>(B) * pl.tiles_x * pl.tiles_y1 : 0;
+  const int64_t tiles2 = need2 ? static_cast<int64_t>(B) * pl.tiles_x * pl.tiles_y2 : 0;
+  auto blocks = [&](int cq) { return (tiles1 + tiles2) * ((C + 4 * cq - 1) / (4 * cq)); };
+  pl.cq = BMAX_CQ;
+  while (pl.cq > 1 && 4 * (pl.cq / 2) >= C) pl.cq /= 2;
+  while (pl.cq > 1 && blocks(pl.cq) < 2 * sms) pl.cq /= 2;
+  pl.cq_log2 = 0;
+  while ((1 << pl.cq_log2) < pl.cq) ++pl.cq_log2;
+  pl.threads = std::max(pl.pg * pl.cq, BMIN_THREADS);
+  pl.chunks = (C + 4 * pl.cq - 1) / (4 * pl.cq);
+  pl.blocks1 = tiles1 * pl.chunks;
+  pl.blocks2 = tiles2 * pl.chunks;
+  pl.s = 4 * pl.cq + 4;
+  const int nn = (2 * d + 1) * (2 * d + 1);
+  const int win = pl.tx + 2 * d;  // staged pixels of a source row
+  pl.g_row = round4(win * nn + 3);
+  pl.g_tile_row = round4(pl.tx * nn + 3);
+  pl.smem_floats = BSTAGES * win * pl.s + std::max(r1 * pl.g_tile_row, BSTAGES * pl.g_row);
+  pl.cvec = pl.gvec = 0;
+  return pl;
+}
+
+// The register tiles for a launch of `outputs` output values: the first of
+// (tr, m) = (2, 2), (2, 1), (1, 2), (1, 1) whose threads give each SM 8
+// warps or more, else (1, 1). A thread has 4 tr^2 outputs of dc1 and 4 tr^2 m
+// of dc2: 2 tr^2 (1 + m) on the mean.
+inline int bwd_tile_choice(int64_t outputs, int sms) {
+  constexpr int per_thread[3] = {24, 16, 6};
+  for (int k = 0; k < 3; ++k)
+    if (outputs / per_thread[k] >= static_cast<int64_t>(8) * 32 * sms) return k;
+  return 3;
+}
+
+__device__ __forceinline__ int mod4(int64_t v) { return static_cast<int>(((v % 4) + 4) % 4); }
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy floats first .. first+n-1 of the g run that starts at index e_row
+// into shared memory at dst + (e_row mod 4), in the run's order, so that
+// 16-byte units of g are 16-byte units there: 16-byte copies for the whole
+// units and 4-byte copies at the two ends (gvec), or 4-byte copies
+// throughout (g not 16-byte aligned). Nothing else is written.
+__device__ __forceinline__ void stage_g_run(const float* __restrict__ g, int64_t e_row,
+                                            int first, int n, float* dst, bool gvec, int tid,
+                                            int nthreads) {
+  const int64_t e0 = e_row + first;
+  dst += mod4(e_row) + first;
+  if (gvec) {
+    const int sh = mod4(e0);
+    const int units = (sh + n + 3) / 4;  // the 16-byte units that the copies touch
+    for (int u = tid; u < units; u += nthreads) {
+      const int lo = 4 * u - sh;  // the unit's first float, counted from e0
+      if (lo >= 0 && lo + 4 <= n) {
+        cp_async<16>(dst + lo, g + e0 + lo, true);
+      } else {
+        for (int v = max(lo, 0); v < min(lo + 4, n); ++v) cp_async4(dst + v, g + e0 + v, true);
+      }
+    }
+  } else {
+    for (int e = tid; e < n; e += nthreads) cp_async4(dst + e, g + e0 + e, true);
+  }
+}
+
+// Stage source row sy of a tile into ring buffer `buf`: the chunk's channels
+// of its tx + 2D staged pixels (image pixels x0-D ..), zeros outside the
+// frame [q_lo, q_hi) and beyond C; for dc2 (WHICH 1) also its g row, the run
+// of its pixels in the frame and zeros for the others.
+template <int D, int WHICH>
+__device__ __forceinline__ void bwd_stage_row(const float* __restrict__ src,
+                                              const float* __restrict__ g, float* cring,
+                                              float* gs, int64_t img, int sy, int buf, int x0,
+                                              int c0, int W, int C, int q_lo, int q_hi,
+                                              const BwdPlan& pl) {
+  constexpr int NN = (2 * D + 1) * (2 * D + 1);
+  const int tid = threadIdx.x, nthreads = pl.threads;
+  const int win = pl.tx + 2 * D;
+  float* cdst = cring + buf * win * pl.s;
+  const int64_t base = ((img + sy) * W + x0 - D) * C + c0;
+  const int kc = 4 * pl.cq;
+  if (pl.cvec) {
+    for (int it = tid; it < win * pl.cq; it += nthreads) {
+      const int px = it >> pl.cq_log2, ch = 4 * (it & (pl.cq - 1));
+      const bool real = px >= q_lo && px < q_hi && c0 + ch < C;
+      cp_async<16>(cdst + px * pl.s + ch, src + (real ? base + int64_t{px} * C + ch : 0), real);
+    }
+  } else {
+    for (int it = tid; it < win * kc; it += nthreads) {
+      const int px = it >> (pl.cq_log2 + 2), ch = it & (kc - 1);
+      const bool real = px >= q_lo && px < q_hi && c0 + ch < C;
+      cp_async4(cdst + px * pl.s + ch, src + (real ? base + int64_t{px} * C + ch : 0), real);
+    }
+  }
+  if constexpr (WHICH == 1) {
+    float* gdst = gs + buf * pl.g_row;
+    const int64_t e_row = ((img + sy) * W + x0 - D) * NN;  // staged pixel 0
+    stage_g_run(g, e_row, q_lo * NN, (q_hi - q_lo) * NN, gdst, pl.gvec, tid, nthreads);
+    const int sh = mod4(e_row);
+    for (int e = tid; e < q_lo * NN; e += nthreads) gdst[sh + e] = 0.f;
+    for (int e = q_hi * NN + tid; e < win * NN; e += nthreads) gdst[sh + e] = 0.f;
+  }
+}
+
+// One block's tile of one gradient. WHICH 0: dc1 from the c2 rows y0-D ..
+// y0+R-1+D and the tile's own g rows; WHICH 1: dc2 from the c1 and g rows
+// y0-D .. y0+R-1+D. Staged pixel q of a source row is image pixel x0-D+q.
+template <int D, int R, int P, int WHICH>
+__device__ __forceinline__ void bwd_f32_tile(const float* __restrict__ src,
+                                             const float* __restrict__ g, float* __restrict__ dst,
+                                             float* smem, int b, int y0, int x0, int c0, int H,
+                                             int W, int C, const BwdPlan& pl, float inv_c) {
+  constexpr int N = 2 * D + 1, NN = N * N;
+  const int tid = threadIdx.x, nthreads = pl.threads;
+  const int q = tid & (pl.cq - 1), pgi = tid >> pl.cq_log2;  // channel quad, pixel group
+  const bool computes = pgi < pl.pg;            // the others only stage
+  const int win = pl.tx + 2 * D;
+  const int c_stage = win * pl.s;
+  float* cring = smem;                   // [BSTAGES][win][s]
+  float* gs = smem + BSTAGES * c_stage;  // dc1: [R][g_tile_row]; dc2: [BSTAGES][g_row]
+  const int64_t img = static_cast<int64_t>(b) * H;
+  const int q_lo = max(0, D - x0), q_hi = min(win, W - x0 + D);  // staged pixels in the frame
+
+  // the source rows in the frame, one cp.async group each, the first with
+  // dc1's g tile (rows y0 .. y0+R-1 in the frame, pixels x0 .. x0+tx-1 in
+  // the frame)
+  const int s_lo = max(0, D - y0), s_hi = min(R + 2 * D, H - y0 + D);
+  if constexpr (WHICH == 0) {
+    const int n_px = min(pl.tx, W - x0);
+    for (int r = 0; r < R && y0 + r < H; ++r)
+      stage_g_run(g, ((img + y0 + r) * W + x0) * NN, 0, n_px * NN, gs + r * pl.g_tile_row,
+                  pl.gvec, tid, nthreads);
+  }
+#pragma unroll
+  for (int st = 0; st < BSTAGES - 1; ++st) {
+    if (s_lo + st < s_hi)
+      bwd_stage_row<D, WHICH>(src, g, cring, gs, img, y0 - D + s_lo + st, st, x0, c0, W, C,
+                              q_lo, q_hi, pl);
+    cp_async_commit();
+  }
+
+  float4 acc[R][P];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int p = 0; p < P; ++p) acc[r][p] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int s = s_lo; s < s_hi; ++s) {
+    cp_async_wait_group<BSTAGES - 2>();
+    // row s has landed, and every thread is past row s-1: its buffer is free
+    __syncthreads();
+    const int buf = (s - s_lo) % BSTAGES;
+    if (s + BSTAGES - 1 < s_hi)
+      bwd_stage_row<D, WHICH>(src, g, cring, gs, img, y0 - D + s + BSTAGES - 1,
+                              (s - s_lo + BSTAGES - 1) % BSTAGES, x0, c0, W, C, q_lo, q_hi, pl);
+    cp_async_commit();
+    if (!computes) continue;
+    const float* cw = cring + buf * c_stage + pgi * P * pl.s + 4 * q;
+    // output row r takes this source row at dy index i; its g values are at
+    // gs[gb[r] + (pixel) * NN + (dx index)]
+    int gb[R];
+    bool live[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = WHICH == 0 ? s - r : r - s + 2 * D;
+      live[r] = i >= 0 && i < N;
+      gb[r] = (WHICH == 0
+                   ? r * pl.g_tile_row + mod4(((img + y0 + r) * W + x0) * NN)
+                   : buf * pl.g_row + mod4(((img + y0 - D + s) * W + x0 - D) * NN)) +
+              pgi * P * NN + i * N;
+    }
+#pragma unroll
+    for (int k = 0; k < P + 2 * D; ++k) {
+      const float4 v = *reinterpret_cast<const float4*>(cw + k * pl.s);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        // dc1: staged pixel pgi*P+k against output pixel pgi*P+p at dx index
+        // j = k - p, g at the output pixel; dc2: j = p + 2D - k, g at the
+        // staged pixel
+        const int j = WHICH == 0 ? k - p : p + 2 * D - k;
+        if (j < 0 || j >= N) continue;
+        const int off = (WHICH == 0 ? p : k) * NN + j;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (!live[r]) continue;
+          const float gv = gs[gb[r] + off];
+          acc[r][p].x = fmaf(gv, v.x, acc[r][p].x);
+          acc[r][p].y = fmaf(gv, v.y, acc[r][p].y);
+          acc[r][p].z = fmaf(gv, v.z, acc[r][p].z);
+          acc[r][p].w = fmaf(gv, v.w, acc[r][p].w);
+        }
+      }
+    }
+  }
+
+  const int c = c0 + 4 * q;
+  if (!computes || c >= C) return;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (y0 + r >= H) break;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int x = x0 + pgi * P + p;
+      if (x >= W) break;
+      const float vals[4] = {acc[r][p].x * inv_c, acc[r][p].y * inv_c, acc[r][p].z * inv_c,
+                             acc[r][p].w * inv_c};
+      float* to = dst + ((img + y0 + r) * W + x) * C + c;
+      if (pl.cvec) {
+        *reinterpret_cast<float4*>(to) = make_float4(vals[0], vals[1], vals[2], vals[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c + e < C) to[e] = vals[e];
+      }
+    }
+  }
+}
+
+// Grid: one block a (tile, channel chunk) of each gradient asked for, the
+// chunk fastest; dc2's blocks first (they take longer: each source row
+// brings a g row), then dc1's; pl.threads threads.
+// (Two blocks an SM as the compiler's target: without it, ptxas spilled 8
+// bytes in the (2, 2) tiles at 96 registers.)
+template <int D, int TR, int M>
+__global__ void __launch_bounds__(BwdTile<TR, M>::MAX_THREADS, 2)
+cost_volume_bwd_f32(const float* __restrict__ c1, const float* __restrict__ c2,
+                    const float* __restrict__ g, float* __restrict__ dc1,
+                    float* __restrict__ dc2, int H, int W, int C, BwdPlan pl, float inv_c) {
+  using T = BwdTile<TR, M>;
+  extern __shared__ float4 bsmem_f4[];
+  float* smem = reinterpret_cast<float*>(bsmem_f4);
+  const bool is_dc2 = blockIdx.x < pl.blocks2;
+  const int64_t z = is_dc2 ? blockIdx.x : blockIdx.x - pl.blocks2;
+  const int chunk = static_cast<int>(z % pl.chunks);
+  const int64_t t = z / pl.chunks;
+  const int tiles_y = is_dc2 ? pl.tiles_y2 : pl.tiles_y1;
+  const int x0 = static_cast<int>(t % pl.tiles_x) * pl.tx;
+  const int y0 = static_cast<int>(t / pl.tiles_x % tiles_y) * (is_dc2 ? pl.r2 : pl.r1);
+  const int b = static_cast<int>(t / pl.tiles_x / tiles_y);
+  const int c0 = chunk * 4 * pl.cq;
+  if (is_dc2)
+    bwd_f32_tile<D, T::R2, T::P, 1>(c1, g, dc2, smem, b, y0, x0, c0, H, W, C, pl, inv_c);
+  else
+    bwd_f32_tile<D, T::R1, T::P, 0>(c2, g, dc1, smem, b, y0, x0, c0, H, W, C, pl, inv_c);
+}
+
+template <int D, int TR, int M>
+cudaError_t launch_bwd_f32_tile(const float* c1, const float* c2, const float* g, float* dc1,
+                                float* dc2, int B, int H, int W, int C, bool cvec, bool gvec,
+                                int sms, cudaStream_t stream) {
+  using T = BwdTile<TR, M>;
+  auto kernel = cost_volume_bwd_f32<D, TR, M>;
+  // the most shared memory a plan of this tile takes (32 pixels x 32
+  // channels), opted into once per device
+  const int most = 4 * bwd_plan(1, T::R2, BTILE_PX, 4 * BMAX_CQ, D, true, true, 0, T::R1, T::R2,
+                                T::P).smem_floats;
+  static bool opted[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!opted[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (err != cudaSuccess) return err;
+    opted[dev] = true;
+  }
+  BwdPlan pl = bwd_plan(B, H, W, C, D, dc1 != nullptr, dc2 != nullptr, sms, T::R1, T::R2, T::P);
+  pl.cvec = cvec;
+  pl.gvec = gvec;
+  const int64_t blocks = pl.blocks1 + pl.blocks2;
+  if (blocks > INT32_MAX || 4 * pl.smem_floats > most) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(blocks), pl.threads, 4 * pl.smem_floats, stream>>>(
+      c1, c2, g, dc1, dc2, H, W, C, pl, 1.0f / static_cast<float>(C));
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bwd_f32(const void* c1, const void* c2, const void* g, void* dc1, void* dc2,
+                           int B, int H, int W, int C, cudaStream_t stream) {
+  const int grads = (dc1 ? 1 : 0) + (dc2 ? 1 : 0);
+  if (grads == 0) return cudaSuccess;
+  static int sms[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!sms[dev]) {
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(c1) | reinterpret_cast<uintptr_t>(c2) |
+                         reinterpret_cast<uintptr_t>(dc1) | reinterpret_cast<uintptr_t>(dc2);
+  const bool cvec = C % 4 == 0 && bits % 16 == 0;
+  const bool gvec = reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  const auto* a = static_cast<const float*>(c1);
+  const auto* b = static_cast<const float*>(c2);
+  const auto* gf = static_cast<const float*>(g);
+  auto* o1 = static_cast<float*>(dc1);
+  auto* o2 = static_cast<float*>(dc2);
+  switch (bwd_tile_choice(static_cast<int64_t>(B) * H * W * C * grads, sms[dev])) {
+    case 0:
+      return launch_bwd_f32_tile<D, 2, 2>(a, b, gf, o1, o2, B, H, W, C, cvec, gvec, sms[dev],
+                                          stream);
+    case 1:
+      return launch_bwd_f32_tile<D, 2, 1>(a, b, gf, o1, o2, B, H, W, C, cvec, gvec, sms[dev],
+                                          stream);
+    case 2:
+      return launch_bwd_f32_tile<D, 1, 2>(a, b, gf, o1, o2, B, H, W, C, cvec, gvec, sms[dev],
+                                          stream);
+    default:
+      return launch_bwd_f32_tile<D, 1, 1>(a, b, gf, o1, o2, B, H, W, C, cvec, gvec, sms[dev],
+                                          stream);
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the tensor-core kernel),
@@ -783,10 +1199,8 @@ extern "C" int fisr_cost_volume_backward(const void* c1, const void* c2, const v
   if (B < 1 || H < 1 || W < 1 || C < 1 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && search_range == 4)
-    return launch_bwd<4, float>(c1, c2, g, dc1, dc2, B, H, W, C, s);
-  if (dtype == 0 && search_range == 2)
-    return launch_bwd<2, float>(c1, c2, g, dc1, dc2, B, H, W, C, s);
+  if (dtype == 0 && search_range == 4) return launch_bwd_f32<4>(c1, c2, g, dc1, dc2, B, H, W, C, s);
+  if (dtype == 0 && search_range == 2) return launch_bwd_f32<2>(c1, c2, g, dc1, dc2, B, H, W, C, s);
   if (dtype == 1 && search_range == 4)
     return launch_bwd<4, __nv_bfloat16>(c1, c2, g, dc1, dc2, B, H, W, C, s);
   if (dtype == 1 && search_range == 2)

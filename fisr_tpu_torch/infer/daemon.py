@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from fisr_tpu_torch.data.png_io import decode_png, encode_png
-from fisr_tpu_torch.device import resolve_device
+from fisr_tpu_torch.device import f32_scope, resolve_device
 from fisr_tpu_torch.infer.autotune import dtype_name
 from fisr_tpu_torch.infer.video import make_fisr_window_fn, make_fused_video_step, make_pair_fn
 from fisr_tpu_torch.models import fisrnet, pwcnet
@@ -117,6 +117,10 @@ class FISRService:
 
     HTTP handlers call it from their own threads, and autograd's mode is per
     thread, so every device call runs under `torch.inference_mode()` here.
+    Under an f32 policy every device call (and the warm-up) also runs under
+    `device.exact_f32()`, inside `_lock`: TF32's flags are process-wide, and
+    the scope keeps them off while any service of the process is inside one
+    (two services on two cards included) and restores them after the last.
     `memory_checks` holds the warm-up's `assert_fits_hbm` results (need,
     limit and budget in bytes a stage; None on the CPU).
     """
@@ -154,7 +158,7 @@ class FISRService:
         zf = z[:, 0]
         pair = []
         what = f"{self.h}x{self.w} serving"
-        with torch.inference_mode():
+        with torch.inference_mode(), f32_scope(self.policy):
             self.memory_checks = {
                 "window_step": assert_fits_hbm(
                     lambda: self._quant(self._window_step(self.fisr_params, self.pwc_params, z)),
@@ -210,7 +214,7 @@ class FISRService:
         """Isolated 3-frame window -> 3 output frames (the fused step)."""
         if len(frames) != 3:
             raise ValueError(f"window needs exactly 3 frames, got {len(frames)}")
-        with self._lock, torch.inference_mode():
+        with self._lock, torch.inference_mode(), f32_scope(self.policy):
             stack = torch.stack([self._to_device(f)[0] for f in frames])[None]
             pred = self._window_step(self.fisr_params, self.pwc_params, stack)
             out = self._window_out_to_u8(pred)
@@ -224,7 +228,7 @@ class FISRService:
         (k-2, k-1, k) that reuses the cached (k-2, k-1) pair, the steady form
         of run_video_pipeline's fused loop.
         """
-        with self._lock, torch.inference_mode():
+        with self._lock, torch.inference_mode(), f32_scope(self.policy):
             st = self._streams.get(stream_id)
             if st is None:
                 st = self._streams[stream_id] = _StreamState()

@@ -3,9 +3,10 @@ the Hopper kernel that replaces fisr_tpu/kernels/cost_volume_pallas.py.
 
 The library holds two forward kernels, chosen by type alone: bf16 pairs take
 the tensor-core kernel (a banded `mma.sync` product, variant "mma_bf16"), f32
-pairs the CUDA-core kernel (variant "fma_f32"); and one backward kernel for
-both types (variants "bwd_f32", "bwd_bf16"), which gathers both input
-gradients in one launch.
+pairs the CUDA-core kernel (variant "fma_f32"); and two backward kernels,
+also by type, each computing both input gradients in one launch: f32 streams
+the source rows through register tiles (variant "bwd_f32"), bf16 gathers a
+row at a time (variant "bwd_bf16").
 
 `cost_volume` takes the kernel for CUDA tensors and the plain version
 (fisr_tpu_torch/ops/cost_volume.py) for CPU tensors; `cost_volume_cuda`

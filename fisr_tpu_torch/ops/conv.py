@@ -10,8 +10,11 @@ These convolutions were XLA's on the TPU (no Pallas kernel), so here they are
 cuDNN's through `torch.nn.functional`.
 
 Precision policy: parameters stay f32; compute runs in `Policy.compute_dtype`
-(bf16 on the card for speed, f32 for parity). f32 parity runs on a GPU must
-turn TF32 off (`torch.backends.cudnn.allow_tf32 = False`).
+(bf16 on the card for speed, f32 for parity). f32 is full f32: the port's
+entry points run an f32 policy inside `fisr_tpu_torch.device.exact_f32`,
+which turns cuDNN's TF32 (PyTorch's default for convolutions) off and
+restores it after. A caller of these functions directly under F32 on a card
+gets what the backend flags say; `exact_f32` is the way to the reference's f32.
 """
 
 from __future__ import annotations

@@ -25,7 +25,7 @@ import torch.distributed as dist
 from fisr_tpu_torch.convert.params import load_train_state_, train_state_tree
 from fisr_tpu_torch.core.mesh import barrier, data_sharding, mesh_device, replicated
 from fisr_tpu_torch.data.dataset import TrainStore
-from fisr_tpu_torch.device import resolve_device
+from fisr_tpu_torch.device import f32_scope, resolve_device
 from fisr_tpu_torch.ops.conv import F32, Policy
 from fisr_tpu_torch.ops.seq import groups_to_overlap, split_seq_dim
 from fisr_tpu_torch.train import schedule as sched
@@ -170,65 +170,67 @@ def fit(
     hb = (Heartbeat(step_timeout_s, name="fit").start()
           if step_timeout_s else None)
     t_start = time.time()
-    # finally: even an escaping exception (out of memory, a bad batch) must
-    # disarm the watchdog, or the armed monitor os._exit(86)s a process that
-    # is no longer hung and masks the real error
-    try:
-        for epoch in range(start_epoch, epochs):
-            sums, count = {}, 0
-            batches = store.batches(batch_size, epoch_seed=seed + epoch)
-            # mid-epoch resume (FISRnet.py:596-606): the epoch permutation is
-            # epoch-seeded, so skipping the first `start_batch` draws continues
-            # the interrupted epoch on exactly the batches it had left
-            skip = start_batch if epoch == start_epoch else 0
-            if skip:
-                batches = itertools.islice(batches, skip, None)
-            batches = prefetch_to_device(batches, dev, sharding=batch_sharding)
-            for idx, batch in enumerate(batches, start=skip):
-                state, m = step_fn(state, batch)
-                count += 1
-                m = read_metrics(m)
-                for k, v in m.items():
-                    sums[k] = sums.get(k, 0.0) + v
-                if hb is not None:
-                    hb.beat()  # after the read-back = real device progress
-                if writer and idx % freq_display == 0:
-                    print(f"Epoch: [{epoch:3d}], [{idx:4d}/{iters:4d}], "
-                          f"time: {(time.time() - t_start) / 60:4.2f}(min), "
-                          f"train_PSNR: {m['train_PSNR']:.3f}, "
-                          f"total_loss: {m['total_loss']:.6f}", flush=True)
-            epoch_means = {k: v / max(count, 1) for k, v in sums.items()}
+    # f32 without TF32 under an f32 policy (fisr_tpu_torch/device.py)
+    with f32_scope(policy):
+        # finally: even an escaping exception (out of memory, a bad batch) must
+        # disarm the watchdog, or the armed monitor os._exit(86)s a process that
+        # is no longer hung and masks the real error
+        try:
+            for epoch in range(start_epoch, epochs):
+                sums, count = {}, 0
+                batches = store.batches(batch_size, epoch_seed=seed + epoch)
+                # mid-epoch resume (FISRnet.py:596-606): the epoch permutation is
+                # epoch-seeded, so skipping the first `start_batch` draws continues
+                # the interrupted epoch on exactly the batches it had left
+                skip = start_batch if epoch == start_epoch else 0
+                if skip:
+                    batches = itertools.islice(batches, skip, None)
+                batches = prefetch_to_device(batches, dev, sharding=batch_sharding)
+                for idx, batch in enumerate(batches, start=skip):
+                    state, m = step_fn(state, batch)
+                    count += 1
+                    m = read_metrics(m)
+                    for k, v in m.items():
+                        sums[k] = sums.get(k, 0.0) + v
+                    if hb is not None:
+                        hb.beat()  # after the read-back = real device progress
+                    if writer and idx % freq_display == 0:
+                        print(f"Epoch: [{epoch:3d}], [{idx:4d}/{iters:4d}], "
+                              f"time: {(time.time() - t_start) / 60:4.2f}(min), "
+                              f"train_PSNR: {m['train_PSNR']:.3f}, "
+                              f"total_loss: {m['total_loss']:.6f}", flush=True)
+                epoch_means = {k: v / max(count, 1) for k, v in sums.items()}
 
-            val_sums, val_count = {}, 0
-            for vb in store.val_batches(val_batch_size):
-                vm = read_metrics(val_fn(state.model, vb))
-                val_count += 1
-                for k, v in vm.items():
-                    val_sums[k] = val_sums.get(k, 0.0) + v
-                if hb is not None:
-                    hb.beat()
-            val_means = {k: v / max(val_count, 1) for k, v in val_sums.items()}
-            if not writer:
-                continue
-            print(f"######### Validation epoch [{epoch}/{epochs}]: "
-                  f"val_PSNR {val_means.get('val_PSNR', float('nan')):.3f} dB, "
-                  f"recnLoss {val_means.get('val_recnLoss', float('nan')):.6f} #########",
-                  flush=True)
+                val_sums, val_count = {}, 0
+                for vb in store.val_batches(val_batch_size):
+                    vm = read_metrics(val_fn(state.model, vb))
+                    val_count += 1
+                    for k, v in vm.items():
+                        val_sums[k] = val_sums.get(k, 0.0) + v
+                    if hb is not None:
+                        hb.beat()
+                val_means = {k: v / max(val_count, 1) for k, v in val_sums.items()}
+                if not writer:
+                    continue
+                print(f"######### Validation epoch [{epoch}/{epochs}]: "
+                      f"val_PSNR {val_means.get('val_PSNR', float('nan')):.3f} dB, "
+                      f"recnLoss {val_means.get('val_recnLoss', float('nan')):.6f} #########",
+                      flush=True)
 
-            if metrics_path:
-                with open(metrics_path, "a") as f:
-                    f.write(json.dumps({"epoch": epoch, "step": state.step,
-                                        **epoch_means, **val_means}) + "\n")
+                if metrics_path:
+                    with open(metrics_path, "a") as f:
+                        f.write(json.dumps({"epoch": epoch, "step": state.step,
+                                            **epoch_means, **val_means}) + "\n")
+                if tb is not None:
+                    tb.log_scalars({**epoch_means, **val_means}, state.step)
+                    _log_val_images(tb, store, state, policy)
+                mgr.save(state.step, train_state_tree(state.model, state.optimizer, state.step),
+                         metric=val_means.get("val_recnLoss"))
+        finally:
+            if hb is not None:
+                hb.stop()
             if tb is not None:
-                tb.log_scalars({**epoch_means, **val_means}, state.step)
-                _log_val_images(tb, store, state, policy)
-            mgr.save(state.step, train_state_tree(state.model, state.optimizer, state.step),
-                     metric=val_means.get("val_recnLoss"))
-    finally:
-        if hb is not None:
-            hb.stop()
-        if tb is not None:
-            tb.close()
+                tb.close()
     return state
 
 

@@ -33,6 +33,7 @@ from fisr_tpu_torch.convert.params import train_state_tree
 from fisr_tpu_torch.core.mesh import average_gradients_, mean_metrics
 from fisr_tpu_torch.data.flo import write_flo
 from fisr_tpu_torch.data.png_io import write_png
+from fisr_tpu_torch.device import f32_scope
 from fisr_tpu_torch.models import pwcnet
 from fisr_tpu_torch.ops.conv import F32, Policy
 from fisr_tpu_torch.ops.warp import dense_image_warp
@@ -200,33 +201,35 @@ def pwc_fit(dataset, ckpt_dir: str, steps: int, batch_size: int = 8,
             yield from dataset.batches(batch_size, train=True, epoch_seed=seed + ep)
 
     t0 = time.time()
-    try:
-        for i, batch in enumerate(prefetch_to_device(epochs(), dev)):
-            if i >= steps:
-                break
-            state, m = step_fn(state, batch)
-            if i % display_every == 0:
-                loss = float(m["loss"])
-                print(f"step {i}/{steps} loss {loss:.4f} "
-                      f"({(time.time() - t0) / 60:.1f} min)", flush=True)
-                if tb:
-                    tb.log_scalar("train/loss", loss, i)
-            if (i + 1) % val_every == 0 or i + 1 == steps:
-                # sample-weighted mean: batches() yields a final partial batch
-                # so every val sample counts exactly once
-                vals = [(float(eval_fn(state.model, vb)["epe"]), len(vb["x"]))
-                        for vb in dataset.batches(batch_size, train=False)]
-                n_val = sum(n for _, n in vals)
-                val_epe = (sum(e * n for e, n in vals) / n_val) if n_val else None
-                print(f"step {i + 1}: val EPE "
-                      f"{'n/a (empty val split)' if val_epe is None else f'{val_epe:.4f}'}",
-                      flush=True)
-                if tb and val_epe is not None:
-                    tb.log_scalar("val/EPE", val_epe, i + 1)
-                    log_val_panel(state.model, i + 1)
-                mgr.save(state.step, train_state_tree(state.model, state.optimizer, state.step),
-                         metric=val_epe)
-    finally:
-        if tb:
-            tb.close()
+    # f32 without TF32 under an f32 policy (fisr_tpu_torch/device.py)
+    with f32_scope(policy):
+        try:
+            for i, batch in enumerate(prefetch_to_device(epochs(), dev)):
+                if i >= steps:
+                    break
+                state, m = step_fn(state, batch)
+                if i % display_every == 0:
+                    loss = float(m["loss"])
+                    print(f"step {i}/{steps} loss {loss:.4f} "
+                          f"({(time.time() - t0) / 60:.1f} min)", flush=True)
+                    if tb:
+                        tb.log_scalar("train/loss", loss, i)
+                if (i + 1) % val_every == 0 or i + 1 == steps:
+                    # sample-weighted mean: batches() yields a final partial batch
+                    # so every val sample counts exactly once
+                    vals = [(float(eval_fn(state.model, vb)["epe"]), len(vb["x"]))
+                            for vb in dataset.batches(batch_size, train=False)]
+                    n_val = sum(n for _, n in vals)
+                    val_epe = (sum(e * n for e, n in vals) / n_val) if n_val else None
+                    print(f"step {i + 1}: val EPE "
+                          f"{'n/a (empty val split)' if val_epe is None else f'{val_epe:.4f}'}",
+                          flush=True)
+                    if tb and val_epe is not None:
+                        tb.log_scalar("val/EPE", val_epe, i + 1)
+                        log_val_panel(state.model, i + 1)
+                    mgr.save(state.step, train_state_tree(state.model, state.optimizer, state.step),
+                             metric=val_epe)
+        finally:
+            if tb:
+                tb.close()
     return state

@@ -9,9 +9,12 @@ uniform [-1, 1) inputs: against autograd of `cost_volume` 4.8e-7 (bound
 
 The index maps of the kernels (the bf16 kernel's 8-pixel tiles against
 16-pixel c2 windows; the f32 kernel's staged rows, pixel groups and channel
-split over a cluster; the backward's gathered tiles) are emulated in plain
-PyTorch and held against the plain version here; the kernels themselves run
-in the `cuda`-marked tests.
+split over a cluster; the bf16 backward's gathered tiles; the f32 backward's
+streamed source rows, shared-memory g runs at their 16-byte phase, register
+tiles and channel split, with NaN in every slot it does not stage) are
+emulated in plain PyTorch and held against the plain version here (the f32
+backward's at atol 1e-6: measured max |diff| 4.8e-7); the kernels
+themselves run in the `cuda`-marked tests.
 """
 
 import numpy as np
@@ -353,6 +356,186 @@ def test_backward_gather_map_matches_plain(shape, d):
         torch.testing.assert_close(x, y, rtol=0, atol=1e-6)
 
 
+# ---- the f32 backward kernel's streamed rows and register tiles, emulated ------
+
+BTILE_PX, BMAX_CQ, BMIN_THREADS = 32, 8, 32  # csrc/cost_volume.cu, cost_volume_bwd_f32
+BWD_TILES = [(2, 2), (2, 1), (1, 2), (1, 1)]  # (tr, m): tr x tr for dc1, m*tr rows x tr for dc2
+PWC_TRAIN_SHAPES = [(8, 256 >> lvl, 448 >> lvl, c)
+                    for lvl, c in {2: 32, 3: 64, 4: 96, 5: 128, 6: 196}.items()]
+JOINT_SHAPES = [(4, 192 >> lvl, 192 >> lvl, c)
+                for lvl, c in {2: 32, 3: 64, 4: 96, 5: 128, 6: 196}.items()]
+
+
+def _bwd_tile_choice(outputs, sms=H100_SMS):
+    """bwd_tile_choice: the first (tr, m) of BWD_TILES whose threads give each
+    SM 8 warps or more (2 tr^2 (1 + m) outputs a thread on the mean)."""
+    for tr, m in BWD_TILES[:3]:
+        if outputs // (2 * tr * tr * (1 + m)) >= 8 * 32 * sms:
+            return tr, m
+    return BWD_TILES[3]
+
+
+def _bwd_plan(b, h, w, c, grads=2, sms=H100_SMS, tile=None):
+    """bwd_plan: register tiles of tr pixels, tr rows for dc1 and m*tr for
+    dc2; tiles of those rows x tx pixels (at most 32, as even as W allows,
+    whole groups of tr); the channel chunk of 4*cq: the smallest power of two
+    of quads that covers C, halved while the launch gives fewer than two
+    blocks an SM."""
+    p, m = _bwd_tile_choice(b * h * w * c * grads, sms) if tile is None else tile
+    r1, r2 = p, m * p
+    tiles_x = -(-w // BTILE_PX)
+    pg = -(-(-(-w // tiles_x)) // p)
+    tiles1, tiles2 = b * tiles_x * -(-h // r1), b * tiles_x * -(-h // r2)
+
+    def blocks(cq):
+        return (tiles1 + tiles2 * (grads == 2)) * -(-c // (4 * cq))
+
+    cq = BMAX_CQ
+    while cq > 1 and 4 * (cq // 2) >= c:
+        cq //= 2
+    while cq > 1 and blocks(cq) < 2 * sms:
+        cq //= 2
+    chunks = -(-c // (4 * cq))
+    return {"r1": r1, "r2": r2, "p": p, "pg": pg, "cq": cq, "tx": pg * p,
+            "threads": max(pg * cq, BMIN_THREADS), "tiles_x": tiles_x,
+            "tiles_y1": -(-h // r1), "tiles_y2": -(-h // r2), "chunks": chunks,
+            "blocks1": tiles1 * chunks, "blocks2": tiles2 * chunks, "blocks": blocks(cq)}
+
+
+def _mod4(v):
+    return v % 4  # Python's % is the kernel's non-negative mod4
+
+
+def _streamed_backward(c1, c2, g, d, sms=H100_SMS, tile=None):
+    """Both gradients the way cost_volume_bwd_f32 takes them, block by block:
+    the plan above; dc2's blocks first, then dc1's, the chunk fastest; per
+    block (tile of R rows: r1 for dc1, r2 for dc2; chunk) the source rows
+    y0-d .. y0+R-1+d in the frame in order, each staged as a
+    window of tx+2d pixels x the chunk's channels (zeros outside the frame
+    and beyond C); g in flat shared-memory rows at each run's 16-byte phase
+    (dc1: the tile's R rows, staged once; dc2: each source row's, with zeros
+    for pixels outside the frame), every slot not staged holding NaN; all
+    threads' register tiles (R rows x P pixels x 4 channels) at once as one
+    [R, tx, 4*cq] sum, added to in the kernel's order (source row, staged
+    pixel k, pixel p, row r) at shared-memory offset gb[r] + off; scaled by
+    1/C and written out once, where the tile lies in the frame."""
+    b, h, w, c = c1.shape
+    n = 2 * d + 1
+    nn = n * n
+    pl = _bwd_plan(b, h, w, c, 2, sms, tile)
+    tx, cq, pg, P = pl["tx"], pl["cq"], pl["pg"], pl["p"]
+    kc, win = 4 * cq, tx + 2 * d
+    g_row = -(-(win * nn + 3) // 4) * 4
+    g_tile_row = -(-(tx * nn + 3) // 4) * 4
+    gflat = g.reshape(-1)
+    outs = [torch.full((b, h, w, c), float("nan")) for _ in range(2)]
+    written = [torch.zeros((b, h, w, c), dtype=torch.int32) for _ in range(2)]
+    groups = torch.arange(pg) * P
+    for z in range(pl["blocks"]):
+        which = 1 if z < pl["blocks2"] else 0
+        z = z if which else z - pl["blocks2"]
+        chunk, t = z % pl["chunks"], z // pl["chunks"]
+        R, tiles_y = (pl["r2"], pl["tiles_y2"]) if which else (pl["r1"], pl["tiles_y1"])
+        x0 = t % pl["tiles_x"] * tx
+        y0 = t // pl["tiles_x"] % tiles_y * R
+        bb = t // pl["tiles_x"] // tiles_y
+        c0, img = chunk * kc, bb * h
+        src = c2 if which == 0 else c1
+        q_lo, q_hi = max(0, d - x0), min(win, w - x0 + d)
+        chans = max(0, min(kc, c - c0))
+
+        def g_run(dst, e_row, first, count):
+            start = _mod4(e_row) + first
+            dst[start:start + count] = gflat[e_row + first:e_row + first + count]
+
+        if which == 0:
+            gtile = torch.full((R * g_tile_row,), float("nan"))
+            for r in range(R):
+                if y0 + r < h:
+                    g_run(gtile[r * g_tile_row:], ((img + y0 + r) * w + x0) * nn, 0,
+                          min(tx, w - x0) * nn)
+        acc = torch.zeros(R, tx, kc)
+        for s in range(max(0, d - y0), min(R + 2 * d, h - y0 + d)):
+            sy = y0 - d + s
+            cwin = torch.zeros(win, kc)
+            cwin[q_lo:q_hi, :chans] = src[bb, sy, x0 - d + q_lo:x0 - d + q_hi, c0:c0 + chans]
+            if which == 1:
+                grow = torch.full((g_row,), float("nan"))
+                e_row = ((img + sy) * w + x0 - d) * nn
+                g_run(grow, e_row, q_lo * nn, (q_hi - q_lo) * nn)
+                sh = _mod4(e_row)
+                grow[sh:sh + q_lo * nn] = 0.0
+                grow[sh + q_hi * nn:sh + win * nn] = 0.0
+            gb, live = [], []
+            for r in range(R):
+                i = s - r if which == 0 else r - s + 2 * d
+                live.append(0 <= i < n)
+                gb.append((r * g_tile_row + _mod4(((img + y0 + r) * w + x0) * nn) if which == 0
+                           else _mod4(((img + sy) * w + x0 - d) * nn)) + i * n)
+            gbuf = gtile if which == 0 else grow
+            for k in range(P + 2 * d):
+                v = cwin[groups + k]  # [pg, kc]: every thread's float4 of staged pixel k
+                for p in range(P):
+                    j = k - p if which == 0 else p + 2 * d - k
+                    if not 0 <= j < n:
+                        continue
+                    pix = groups + (p if which == 0 else k)
+                    for r in range(R):
+                        if live[r]:
+                            acc[r, groups + p] += gbuf[gb[r] + pix * nn + j, None] * v
+        rows, cols = min(R, h - y0), min(tx, w - x0)
+        outs[which][bb, y0:y0 + rows, x0:x0 + cols, c0:c0 + chans] = (
+            acc[:rows, :cols, :chans] * (1.0 / c))
+        written[which][bb, y0:y0 + rows, x0:x0 + cols, c0:c0 + chans] += 1
+    for cnt in written:
+        assert bool((cnt == 1).all())  # every output element written exactly once
+    return tuple(outs), pl
+
+
+@pytest.mark.parametrize("tile", BWD_TILES)
+@pytest.mark.parametrize("shape,d", [((2, 9, 53, 12), 4), ((1, 7, 13, 3), 2),
+                                     ((1, 1, 1, 1), 4), ((1, 2, 5, 70), 2),
+                                     ((1, 3, 33, 33), 4),
+                                     ((2, 16, 28, 12), 4)])  # pwc_train's level 4, narrowed
+def test_backward_stream_map_matches_plain(shape, d, tile):
+    a, b, g = (torch.from_numpy(x) for x in _uniform(12, shape, d))
+    got, pl = _streamed_backward(a, b, g, d, tile=tile)
+    assert (pl["r1"], pl["r2"]) == (tile[0], tile[0] * tile[1])
+    for x, y in zip(got, cost_volume_backward(a, b, g, d)):
+        torch.testing.assert_close(x, y, rtol=0, atol=1e-6)
+
+
+def test_backward_stream_map_splits_channels_over_blocks():
+    """With fewer SMs to fill the chunk stays at 32 channels; with the card's
+    132 it shrinks to one quad: the same sums, split over 8 times the blocks."""
+    a, b, g = (torch.from_numpy(x) for x in _uniform(13, (1, 4, 7, 30), 4))
+    wide, wide_plan = _streamed_backward(a, b, g, 4, sms=1, tile=(2, 2))
+    split, split_plan = _streamed_backward(a, b, g, 4, tile=(2, 2))
+    assert (wide_plan["cq"], wide_plan["chunks"]) == (8, 1)
+    assert (split_plan["cq"], split_plan["chunks"]) == (1, 8)
+    for x, y in zip(wide, split):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("shape", PWC_TRAIN_SHAPES + JOINT_SHAPES)
+def test_backward_plan_fills_the_card_at_the_training_levels(shape):
+    """Two blocks an SM or more at every level that the PWC and joint steps
+    launch, both gradients asked for; tiles no wider than the frame needs."""
+    pl = _bwd_plan(*shape)
+    assert pl["blocks"] >= 2 * H100_SMS
+    assert pl["tiles_x"] * pl["tx"] - shape[2] < pl["p"] * pl["tiles_x"]
+    assert pl["blocks"] == pl["blocks1"] + pl["blocks2"]
+
+
+def test_backward_plan_at_the_pwc_train_levels():
+    """(dc1's tile rows, dc2's, tile width, chunk channels, blocks, threads a
+    block) at levels 2..6 of a pwc_train step."""
+    plans = [(p["r1"], p["r2"], p["tx"], 4 * p["cq"], p["blocks"], p["threads"])
+             for p in (_bwd_plan(*s) for s in PWC_TRAIN_SHAPES)]
+    assert plans == [(2, 4, 28, 32, 1536, 112), (2, 4, 28, 32, 768, 112),
+                     (2, 2, 28, 32, 384, 112), (1, 2, 14, 32, 384, 112), (1, 1, 7, 32, 448, 56)]
+
+
 # ---- on the card: the kernel against its plain version -----------------------
 
 @pytest.fixture
@@ -453,8 +636,8 @@ def _assert_backward_close(got, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,d", [((1, 1, 1, 1), 4), ((2, 37, 53, 3), 2),
                                      ((2, 37, 53, 3), 4), ((2, 9, 131, 196), 4),
-                                     ((1, 5, 40, 20), 4), ((8, 4, 7, 196), 4),
-                                     ((4, 48, 48, 32), 4)])
+                                     ((1, 5, 40, 20), 4), ((4, 48, 48, 32), 4)]
+                         + [(s, 4) for s in PWC_TRAIN_SHAPES])
 def test_backward_kernel_matches_plain_on_card(cuda_device, dtype, shape, d):
     a, b, g = _card_triple(cuda_device, 4, shape, d, dtype)
     got = kernel.cost_volume_backward_cuda(a, b, g, d)
@@ -469,8 +652,9 @@ def test_backward_kernel_matches_plain_on_card(cuda_device, dtype, shape, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_backward_kernel_is_deterministic_on_card(cuda_device, dtype):
-    a, b, g = _card_triple(cuda_device, 5, (2, 9, 131, 196), 4, dtype)
+@pytest.mark.parametrize("shape", [(2, 9, 131, 196)] + PWC_TRAIN_SHAPES)
+def test_backward_kernel_is_deterministic_on_card(cuda_device, dtype, shape):
+    a, b, g = _card_triple(cuda_device, 5, shape, 4, dtype)
     first = kernel.cost_volume_backward_cuda(a, b, g, 4)
     second = kernel.cost_volume_backward_cuda(a, b, g, 4)
     assert all(torch.equal(x, y) for x, y in zip(first, second))

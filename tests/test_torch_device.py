@@ -174,3 +174,182 @@ def test_fast_tiled_runner_matches_jax(small, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         device.FastTiledRunner(model)
+
+
+# ---- the numeric policy of the entry points (fisr_tpu_torch/device.py) ------------------
+#
+# Each entry point below runs its work through an inner call that is replaced
+# here by one that records the three backend flags. TF32 is forced on and
+# cuDNN's deterministic mode off beforehand (PyTorch's defaults on a card), so
+# an entry point that leaves them alone is seen to.
+
+from fisr_tpu_torch import device as policy  # noqa: E402
+from fisr_tpu_torch.ops.conv import BF16  # noqa: E402
+
+DEFAULTS = (True, True, False)  # cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic
+EXACT = (False, False, False)
+
+
+def _flags():
+    return (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.deterministic)
+
+
+@pytest.fixture
+def card_defaults(monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    assert _flags() == DEFAULTS
+
+
+def test_exact_f32_sets_and_restores_both_flags(card_defaults):
+    with policy.exact_f32():
+        assert _flags() == EXACT
+        with policy.exact_f32(), policy.cudnn_deterministic():
+            assert _flags() == (False, False, True)
+        assert _flags() == EXACT  # the inner scope leaves the outer one's setting
+    assert _flags() == DEFAULTS
+    with pytest.raises(KeyError):
+        with policy.exact_f32():
+            raise KeyError("a failure inside the block")
+    assert _flags() == DEFAULTS
+    with policy.f32_scope(BF16):
+        assert _flags() == DEFAULTS
+    with policy.f32_scope(F32):
+        assert _flags() == EXACT
+    assert _flags() == DEFAULTS
+
+
+def test_exact_f32_holds_until_the_last_thread_leaves(card_defaults):
+    """Two services of one process on two cards: the one that leaves first
+    must not turn TF32 back on under the other."""
+    import threading
+
+    inside, release, seen = threading.Event(), threading.Event(), []
+
+    def other():
+        with policy.exact_f32():
+            inside.set()
+            release.wait(10)
+            seen.append(_flags())
+
+    t = threading.Thread(target=other)
+    with policy.exact_f32():
+        t.start()
+        assert inside.wait(10)
+    assert _flags() == EXACT  # the other thread is still inside
+    release.set()
+    t.join(10)
+    assert seen == [EXACT] and _flags() == DEFAULTS
+
+
+@pytest.mark.parametrize("dtype,want", [("float32", EXACT), ("bfloat16", DEFAULTS)])
+@pytest.mark.parametrize("phase", ["test", "FISR_for_video", "train"])
+def test_main_cli_runs_an_f32_phase_without_tf32(card_defaults, monkeypatch, dtype, want,
+                                                 phase):
+    from fisr_tpu_torch.cli import main as cli
+
+    seen = []
+    for name in ("run_train", "run_test", "run_video"):
+        monkeypatch.setattr(cli, name, lambda args, dev, name=name: seen.append((name, _flags())))
+    cli.main(["--phase", phase, "--device", "cpu", "--compute_dtype", dtype])
+    runs = {"test": ["run_test"], "FISR_for_video": ["run_video"],
+            "train": ["run_train", "run_test"]}[phase]
+    assert seen == [(name, want) for name in runs]
+    assert _flags() == DEFAULTS
+
+
+@pytest.mark.parametrize("pol,want", [(F32, EXACT), (BF16, DEFAULTS)])
+def test_fit_runs_an_f32_policy_without_tf32(card_defaults, monkeypatch, tmp_path, pol, want):
+    from fisr_tpu_torch.data import synth
+    from fisr_tpu_torch.train import loop, trainer
+
+    seen = []
+
+    def make_step(loss_weights, policy_, mesh=None):
+        def step(state, batch):
+            seen.append(("train", _flags()))
+            return state, {"total_loss": torch.tensor(1.0), "train_PSNR": torch.tensor(20.0)}
+        return step
+
+    def make_val(policy_):
+        def val(model, batch):
+            seen.append(("val", _flags()))
+            return {"val_PSNR": torch.tensor(20.0), "val_recnLoss": torch.tensor(1.0)}
+        return val
+
+    monkeypatch.setattr(loop, "make_train_step", make_step)
+    monkeypatch.setattr(loop, "make_val_step", make_val)
+    monkeypatch.setattr(loop, "create_state", lambda seed, opt, device: trainer.create_state(
+        seed, opt, ch=8, device=device))
+    store = synth.synthetic_store(n_samples=6, h=16, w=16, seed=0, val_size=2)
+    state = loop.fit(store, ckpt_dir=str(tmp_path / "ck"), epochs=1, batch_size=2,
+                     policy=pol, device="cpu")
+    assert state.step == 0  # the recording step leaves the state as it was
+    assert seen == [("train", want)] * 2 + [("val", want)]
+    assert _flags() == DEFAULTS
+
+
+@pytest.mark.parametrize("pol,want", [(F32, EXACT), (BF16, DEFAULTS)])
+def test_pwc_fit_runs_an_f32_policy_without_tf32(card_defaults, monkeypatch, tmp_path, pol,
+                                                 want):
+    from fisr_tpu_torch.data.flow_dataset import FlowDataset
+    from fisr_tpu_torch.train import pwc_trainer
+
+    seen = []
+
+    def make_step(cfg, policy_, loss_mode):
+        def step(state, batch):
+            seen.append(("train", _flags()))
+            return state, {"loss": torch.tensor(1.0)}
+        return step
+
+    def make_eval(cfg, policy_):
+        def evaluate(model, batch):
+            seen.append(("eval", _flags()))
+            return {"epe": torch.tensor(1.0)}
+        return evaluate
+
+    class NoSave:
+        def __init__(self, *a, **kw):
+            pass
+
+        def save(self, *a, **kw):
+            seen.append(("save", _flags()))
+
+    monkeypatch.setattr(pwc_trainer, "make_pwc_train_step", make_step)
+    monkeypatch.setattr(pwc_trainer, "make_pwc_eval_step", make_eval)
+    monkeypatch.setattr(pwc_trainer, "CheckpointManager", NoSave)
+    ds = FlowDataset.synthetic_textured(n=4, h=32, w=32, seed=0, val_split=0.5)
+    pwc_trainer.pwc_fit(ds, str(tmp_path / "ck"), steps=2, batch_size=2, val_every=2,
+                        policy=pol, device="cpu")
+    assert seen == [("train", want)] * 2 + [("eval", want), ("save", want)]
+    assert _flags() == DEFAULTS
+
+
+@pytest.mark.parametrize("pol,want", [(F32, EXACT), (BF16, DEFAULTS)])
+def test_service_computes_an_f32_policy_without_tf32(card_defaults, pol, want):
+    """FISRService sets the flags under its lock around each device call."""
+    from fisr_tpu_torch.infer.daemon import FISRService
+    from fisr_tpu_torch.models.fisrnet import FISRnet
+    from fisr_tpu_torch.models.pwcnet import PWCNet
+
+    h, w = 32, 64
+    svc = FISRService(FISRnet(ch=8, device="cpu"), PWCNet(device="cpu"), h, w, policy=pol,
+                      device="cpu", warmup=False)
+    seen = []
+
+    def record(*args):
+        seen.append(_flags())
+        return torch.zeros((1, 2 * h, 2 * w, 9))
+
+    svc._window_step = svc._win_fn = record
+    svc._pair_fn = lambda *args: (seen.append(_flags()), "pair")[1]
+    frame = np.zeros((h, w, 3), np.uint8)
+    assert len(svc.window([frame] * 3)) == 3
+    for _ in range(3):
+        svc.stream_frame("s", frame)
+    # the window, then the stream's pairs (frames 2 and 3) and its one window
+    assert seen == [want] * 4
+    assert _flags() == DEFAULTS

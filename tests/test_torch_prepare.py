@@ -189,3 +189,69 @@ def test_rgb2yuv_matlab_u8_matches_jax():
     numpy_route = np.clip(np.asarray(jcolor.rgb2yuv_matlab(rgb.astype(np.float32))),
                           0, 255).astype(np.uint8)
     assert int((ours != numpy_route).sum()) == 0
+
+
+# ---- the corpus tools' numeric policy: f32 without TF32, cuDNN deterministic --------------
+
+EXACT_AND_DETERMINISTIC = (False, False, True)
+
+
+def _flags():
+    return (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.deterministic)
+
+
+@pytest.fixture
+def card_defaults(monkeypatch):
+    """PyTorch's defaults on a card: TF32 on for cuDNN (forced on for cuBLAS
+    too, so that leaving it alone shows), cuDNN free to pick its algorithms."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    return _flags()
+
+
+@pytest.mark.parametrize("cmd", ["flow-from-pngs", "flow-from-mat", "warp-from-mat"])
+def test_prepare_main_runs_exact_f32_and_deterministic(tmp_path, monkeypatch, card_defaults,
+                                                       cmd):
+    seen = []
+
+    def flows(pwc, seqs, ss=1, policy=None, device="cuda"):
+        seen.append(_flags())
+        return np.zeros((len(seqs), 8 // ss, *seqs.shape[2:4], 2), np.float32)
+
+    def warps(seqs, fl, ss=1, device="cuda"):
+        seen.append(_flags())
+        return np.zeros((len(seqs), 8 // ss, *seqs.shape[2:4], 3), np.float32)
+
+    monkeypatch.setattr(prepare, "flows_for_sequences", flows)
+    monkeypatch.setattr(prepare, "warps_for_sequences", warps)
+    monkeypatch.setattr(prepare, "load_pwc", lambda ckpt, device: None)
+    frames = np.random.default_rng(0).integers(0, 256, (5, 8, 8, 3), dtype=np.uint8)
+    png_dir, mat, flo_path = tmp_path / "pngs", str(tmp_path / "lr.mat"), str(tmp_path / "f.flo")
+    png_dir.mkdir()
+    for i, fr in enumerate(frames):
+        write_png(fr, png_dir / f"fr_{i:03d}.png")
+    matio.write_train_mat(mat, "LR_data", frames[None].astype(np.float32) / 255.0)
+    flo.write_flo_5dim(np.zeros((1, 8, 8, 8, 2), np.float32), flo_path)
+    args = {"flow-from-pngs": ["--png_dir", str(png_dir), "--pwc_ckpt", "ck"],
+            "flow-from-mat": ["--mat", mat, "--pwc_ckpt", "ck"],
+            "warp-from-mat": ["--mat", mat, "--flo", flo_path]}[cmd]
+    prepare.main([cmd, *args, "--out", str(tmp_path / "out"), "--device", "cpu"])
+    assert seen == [EXACT_AND_DETERMINISTIC]
+    assert _flags() == card_defaults
+
+
+def test_build_corpus_main_runs_exact_f32_and_deterministic(tmp_path, monkeypatch,
+                                                            card_defaults):
+    seen = []
+    monkeypatch.setattr(prepare, "load_pwc", lambda ckpt, device: None)
+    monkeypatch.setattr(build_corpus, "build_corpus",
+                        lambda *args, **kw: seen.append(_flags()) or {"out": args[1]})
+    frames_dir = tmp_path / "frames"
+    frames_dir.mkdir()
+    assert build_corpus.main(["--frames", str(frames_dir), "--out", str(tmp_path / "out"),
+                              "--pwc_ckpt", "ck", "--device", "cpu"]) == {
+        "out": str(tmp_path / "out")}
+    assert seen == [EXACT_AND_DETERMINISTIC]
+    assert _flags() == card_defaults
