@@ -13,7 +13,8 @@ Phases (any failure raises and exits non-zero):
    1024x1920 window (B=2, d=4), at ragged shapes (d=2 and 4, odd W and H,
    C=3, 20, 196), and the gradient; the backward kernels (bwd_f32, bwd_bf16)
    against the plain backward (ops/cost_volume.cost_volume_backward) at the
-   ragged shapes and at the level shapes of the pwc_train and joint steps,
+   ragged shapes (and d=2 at W=19, C=40) and at the level shapes of the
+   pwc_train and joint steps,
    f32 and bf16, each launched twice with the same bits. At the level shapes
    the forward kernel is timed
    with CUDA events twice: call by call through the wrapper (`ms`, which at
@@ -376,10 +377,12 @@ def phase_kernel():
     for dtype in (torch.float32, torch.bfloat16):
         for shape, d in ragged:
             max_err = max(max_err, check_cost_volume(kernel, plain, shape, d, dtype, g)[0])
-    # the backward kernel against the plain backward at the ragged shapes and
+    # the backward kernel against the plain backward at the ragged shapes (and
+    # d = 2 with W off the 8-pixel tiles and C off the 16-channel m-tiles) and
     # the level shapes of the pwc_train and joint steps
     bwd_err = 0.0
-    bwd_shapes = ragged + [(s, D) for s in PWC_TRAIN_SHAPES + JOINT_SHAPES]
+    bwd_shapes = (ragged + [((1, 5, 19, 40), 2)]
+                  + [(s, D) for s in PWC_TRAIN_SHAPES + JOINT_SHAPES])
     for dtype in (torch.float32, torch.bfloat16):
         for shape, d in bwd_shapes:
             bwd_err = max(bwd_err, check_backward(kernel, shape, d, dtype, g))
@@ -2029,13 +2032,19 @@ def main() -> int:
         "bound_ms": sum(cv_bwd_bound_ms(s, torch.float32)[0] for s in pwc_shapes),
         "bound_by": "bytes" if all(cv_bwd_bound_ms(s, torch.float32)[1] == "bytes"
                                    for s in pwc_shapes) else "operations",
-        "bf16": {"ms": backward["bf16"]["kernel"]["ms"],
+        "bf16": {"launches": pwc_train["steps"]["bf16"]["bwd_launches"],
+                 "ms": backward["bf16"]["kernel"]["ms"],
                  "graph_ms": backward["bf16"]["kernel"]["graph_ms"],
                  "graph_ms_by_level": dict(zip(LEVEL_CHANNELS,
                                                backward["bf16"]["kernel"]["graph_ms_by_shape"])),
+                 "bound_ms_by_level": {lvl: cv_bwd_bound_ms(s, torch.bfloat16)[0]
+                                       for lvl, s in zip(LEVEL_CHANNELS, pwc_shapes)},
                  "busy_ms": backward["bf16"]["kernel"]["busy_ms"],
+                 "plain_ms": backward["bf16"]["plain"]["ms"],
                  "plain_busy_ms": backward["bf16"]["plain"]["busy_ms"],
-                 "bound_ms": sum(cv_bwd_bound_ms(s, torch.bfloat16)[0] for s in pwc_shapes)},
+                 "bound_ms": sum(cv_bwd_bound_ms(s, torch.bfloat16)[0] for s in pwc_shapes),
+                 "bound_by": "bytes" if all(cv_bwd_bound_ms(s, torch.bfloat16)[1] == "bytes"
+                                            for s in pwc_shapes) else "operations"},
         "library_ms": None,
     }]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -131,10 +131,55 @@
 //   Sums run in source-row order, then staged-pixel order: the plain
 //   version's (dy, dx) order for dc1, another order for dc2.
 //
-// bf16: cost_volume_bwd_kernel<D, __nv_bfloat16>, the first design: a
-//   block owns 32 pixels x 32 channels of one row of one gradient and, for
-//   each dy, stages the other input's row (32+2d pixels) and the 2d+1 values
-//   of g that dy needs per pixel in shared memory; converted to f32 there.
+// bf16: cost_volume_bwd_bf16, a banded product on the tensor cores, streamed
+//   like the f32 kernel. For one output row, one source row at dy index i and
+//   8 output pixels x0..x0+7, the gradient is one mma.sync.m16n8k16,
+//   D[16 channels x 8 pixels] += A * B, with A the 16 staged source pixels
+//   x0-d .. x0-d+15 transposed [16 channels x 16 pixels] (8 + 2d <= 16: one
+//   k-step holds the window) and B the band of g [16 pixels x 8 pixels]:
+//   dc1: B[k][n] = g[y, x0+n, i, k-n], dc2: B[k][n] = g[y-dy, x0-d+k, i,
+//   n-k+2d], zero where the dx index lies outside [0, 2d] (9 of a column's 16
+//   k at d = 4). The source window is the 16-row operand for the reason the
+//   forward's c2 window is. What the design does about the bound:
+//   * A comes from the source row staged as it lies in memory ([pixel]
+//     [channels], raw bf16) through one ldmatrix.x4.trans a 16-channel
+//     m-tile: no transpose in the staging. A staged pixel is 16 mt + 8
+//     values, an odd number of 16-byte units, so ldmatrix meets 8 different
+//     bank groups; neighbouring n-tiles share 8 of their 16 window pixels;
+//   * B is built per (source row, output row, n-tile) from g staged raw in
+//     shared memory (bf16, so exact): each lane loads its 4 band entries at
+//     offsets fixed for the lane, and the B serves every m-tile of the block;
+//   * a block owns r output rows x 8 nt pixels (nt <= 4 n-tiles, a warp
+//     each) x one chunk of m-tiles of one gradient, and walks the source rows
+//     y0-d .. y0+r-1+d through a two-stage cp.async ring (a deeper one was no
+//     faster on a scratch variant); for dc2 each source row brings
+//     its g row, for dc1 each g row of the tile comes with the first source
+//     row that needs it. A thread keeps r x m-tiles x 4 f32 sums (16 products,
+//     64 registers, no spills at four blocks an SM);
+//   * g's 81 values a pixel are 2-byte aligned only: a row's run is staged as
+//     the whole 16-byte units that hold it, at the run's own phase (the few
+//     values of the neighbouring pixels that share its first and last unit
+//     come along and are never read); the band reads of dc2 are zero for
+//     pixels outside the frame instead of stored zeros. Copying those partial
+//     units one value at a time, synchronously, cost every row step a trip
+//     to device memory;
+//   * tiles (r1, r2) of (8, 8), (2, 4), (1, 1): the one whose launch needs
+//     the fewest waves (four blocks an SM) times the longest chain of row
+//     steps; then the output channels split into chunks until the launch
+//     gives two blocks an SM (no reduction: channels are independent). At
+//     the pwc_train levels: (8, 8) at level 2, (2, 4) at level 3, (1, 1)
+//     below (scripts/time_cost_volume_backward.py times each tile forced).
+//     On scratch variants of this kernel a row step took about as long
+//     whether a launch ran in one wave or in two, so the chain's length and
+//     the step's own work set the time; the band build and the products were
+//     half of a step at level 2 until the lane's and the row's offsets were
+//     precomputed and the rows predicated instead of branched;
+//   * the f32 sums are scaled by 1/C once, cast once, and go out through
+//     shared memory as NHWC runs, 16-byte stores where C % 8 == 0.
+//   Sums run in f32 in source-row order, 16 window pixels a product. What
+//   keeps it above its byte bound (chip_smoke.py prints each level against
+//   it): each row step's staging and band build, and at the small levels a
+//   floor of launch, first copies and write-out.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -693,112 +738,6 @@ cudaError_t launch_fma_f32(const void* c1, const void* c2, void* out, int B, int
   return launch_fma_f32_vec<D, 1>(a, b, o, B, H, W, C, stream);
 }
 
-// ---- backward, bf16: both input gradients, gathered a row at a time -----------
-
-constexpr int BTX = 32;                      // output pixels per block
-constexpr int BKC = 32;                      // output channels per block: a warp's lanes
-constexpr int BTHREADS = 256;
-constexpr int BGROUPS = BTHREADS / BKC;      // pixel groups: thread t has pixels t/BKC + BGROUPS q
-constexpr int BPX = BTX / BGROUPS;           // pixels per thread
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// One block's tile of one gradient. WHICH 0: dc1, gathered from c2 at (y+dy,
-// x+dx) with g at (y, x); WHICH 1: dc2, gathered from c1 and g both at
-// (y-dy, x-dx). Staged pixel p of a row is image pixel x0-D+p.
-template <int D, int WHICH, typename T>
-__device__ __forceinline__ void bwd_tile(const T* __restrict__ x_src, const T* __restrict__ g,
-                                         T* __restrict__ dst, int64_t img, int y, int x0,
-                                         int c0, int H, int W, int C, float inv_c) {
-  constexpr int N = 2 * D + 1, NN = N * N, PW = BTX + 2 * D;
-  __shared__ float xs[PW][BKC];  // the gathered input's row, the block's channels
-  __shared__ float gs[PW][N];    // g's row times 1/C, the 2d+1 shifts of this dy
-  const int tid = threadIdx.x, c = tid % BKC, pg = tid / BKC;
-  float acc[BPX];
-#pragma unroll
-  for (int q = 0; q < BPX; ++q) acc[q] = 0.f;
-  for (int i = 0; i < N; ++i) {
-    const int sy = WHICH == 0 ? y + i - D : y - (i - D);  // row of the gathered input
-    const int gy = WHICH == 0 ? y : sy;                   // row of g
-    __syncthreads();  // the previous dy's readers are done
-    for (int u = tid; u < PW * BKC; u += BTHREADS) {
-      const int p = u / BKC, cc = u % BKC, gx = x0 - D + p;
-      float v = 0.f;
-      if (sy >= 0 && sy < H && gx >= 0 && gx < W && c0 + cc < C)
-        v = to_f32(x_src[((img + sy) * W + gx) * C + c0 + cc]);
-      xs[p][cc] = v;
-    }
-    for (int u = tid; u < PW * N; u += BTHREADS) {
-      const int p = u / N, j = u % N, gx = x0 - D + p;
-      float v = 0.f;
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v = to_f32(g[((img + gy) * W + gx) * NN + i * N + j]) * inv_c;
-      gs[p][j] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < BPX; ++q) {
-      const int p = pg + BGROUPS * q;  // output pixel x0+p
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const int s = WHICH == 0 ? p + D : p + 2 * D - j;  // g's staged pixel
-        const int t = WHICH == 0 ? p + j : s;              // the input's staged pixel
-        acc[q] = fmaf(gs[s][j], xs[t][c], acc[q]);
-      }
-    }
-  }
-  if (c0 + c >= C) return;
-#pragma unroll
-  for (int q = 0; q < BPX; ++q) {
-    const int x = x0 + pg + BGROUPS * q;
-    if (x < W) dst[((img + y) * W + x) * C + c0 + c] = from_f32<T>(acc[q]);
-  }
-}
-
-// grid: (W tiles, H, B x channel chunks x gradients asked for); `first` is the
-// first gradient asked for (0: dc1, 1: dc2), `grads` how many (1 or 2).
-template <int D, typename T>
-__global__ void __launch_bounds__(BTHREADS)
-cost_volume_bwd_kernel(const T* __restrict__ c1, const T* __restrict__ c2,
-                       const T* __restrict__ g, T* __restrict__ dc1, T* __restrict__ dc2,
-                       int H, int W, int C, int chunks, int first, int grads, float inv_c) {
-  const int z = blockIdx.z;
-  const int which = first + z % grads;
-  const int chunk = (z / grads) % chunks;
-  const int64_t img = static_cast<int64_t>(z / grads / chunks) * H;
-  const int y = blockIdx.y, x0 = blockIdx.x * BTX, c0 = chunk * BKC;
-  if (which == 0)
-    bwd_tile<D, 0, T>(c2, g, dc1, img, y, x0, c0, H, W, C, inv_c);
-  else
-    bwd_tile<D, 1, T>(c1, g, dc2, img, y, x0, c0, H, W, C, inv_c);
-}
-
-template <int D, typename T>
-cudaError_t launch_bwd(const void* c1, const void* c2, const void* g, void* dc1, void* dc2,
-                       int B, int H, int W, int C, cudaStream_t stream) {
-  const int first = dc1 ? 0 : 1;
-  const int grads = (dc1 ? 1 : 0) + (dc2 ? 1 : 0);
-  const int chunks = (C + BKC - 1) / BKC;
-  const int64_t z = static_cast<int64_t>(B) * chunks * grads;
-  if (grads == 0) return cudaSuccess;
-  if (z > 65535) return cudaErrorInvalidValue;
-  const dim3 grid((W + BTX - 1) / BTX, H, static_cast<unsigned>(z));
-  cost_volume_bwd_kernel<D, T><<<grid, BTHREADS, 0, stream>>>(
-      static_cast<const T*>(c1), static_cast<const T*>(c2), static_cast<const T*>(g),
-      static_cast<T*>(dc1), static_cast<T*>(dc2), H, W, C, chunks, first, grads,
-      1.0f / static_cast<float>(C));
-  return cudaGetLastError();
-}
-
 // ---- backward, f32: streamed source rows, register tiles ----------------------
 
 constexpr int BTILE_PX = 32;  // pixels of a tile row, at most
@@ -1173,6 +1112,466 @@ cudaError_t launch_bwd_f32(const void* c1, const void* c2, const void* g, void* 
   }
 }
 
+// ---- backward, bf16: banded products on the tensor cores ---------------------
+
+constexpr int QTX = 32;            // pixels of a tile row, at most: 4 n-tiles of 8, one warp each
+constexpr int QACC = 16;           // (output row, m-tile) products a thread keeps: rows x m-tiles
+constexpr int QMIN_THREADS = 128;  // a block stages with four warps (two were slower at level 5)
+
+// The launch plan of cost_volume_bwd_bf16. A tile is r rows x 8 nt pixels of
+// one gradient; its block takes one chunk of C's m-tiles (16 channels each):
+// chunk k of n takes m-tiles k mts / n .. (k + 1) mts / n - 1.
+struct BwdBf16Plan {
+  int r1, r2;              // output rows of dc1's tiles and of dc2's
+  int nt;                  // n-tiles of a tile: 8 nt pixels, a computing warp each
+  int threads;             // 32 nt, at least QMIN_THREADS
+  int tiles_x, tiles_y1, tiles_y2;
+  int mts;                 // m-tiles that cover C
+  int chunks1, chunks2;    // channel chunks of dc1 and of dc2
+  int vec;                 // bf16 a copy of c1/c2 and a store of dc1/dc2: 8, 4 or 1
+  int gvec;                // g 16-byte aligned: its runs go in 16-byte copies
+  int64_t blocks1, blocks2;
+  int smem_bytes;
+};
+
+__host__ __device__ inline int round8(int v) { return (v + 7) / 8 * 8; }
+
+// Shared memory of a block of `rows` output rows, nt n-tiles and mt m-tiles,
+// in bf16 values: the ring of BSTAGES source rows (8 nt + 8 staged pixels of
+// 16 mt + 8 channels; for dc2 each with its g row) and, for dc1, the tile's
+// g rows; or, after the loop, the output tile.
+inline int bwd_bf16_smem(int d, int nt, int rows, int mt, bool dc2) {
+  const int nn = (2 * d + 1) * (2 * d + 1);
+  const int tx = 8 * nt, win = tx + 8, s = 16 * mt + 8;
+  const int per_row = win * s + (dc2 ? round8(win * nn + 7) : 0);
+  const int fixed = dc2 ? 0 : rows * round8(tx * nn + 7);
+  return std::max(BSTAGES * per_row + fixed, rows * tx * s);
+}
+
+// Tiles: rows of r1 (dc1) or r2 (dc2), columns of 8 nt pixels, nt <= 4 as
+// even as W allows. Channels: each gradient starts from the fewest chunks
+// whose m-tiles fit a thread's QACC products (rows x m-tiles); both grow by
+// one chunk at a time while the launch gives fewer than two blocks an SM.
+inline BwdBf16Plan bwd_bf16_plan(int B, int H, int W, int C, int d, bool need1, bool need2,
+                                 int sms, int r1, int r2) {
+  BwdBf16Plan pl = {};
+  pl.r1 = r1;
+  pl.r2 = r2;
+  pl.tiles_x = (W + QTX - 1) / QTX;
+  pl.nt = ((W + 7) / 8 + pl.tiles_x - 1) / pl.tiles_x;
+  pl.threads = std::max(32 * pl.nt, QMIN_THREADS);
+  pl.tiles_y1 = (H + r1 - 1) / r1;
+  pl.tiles_y2 = (H + r2 - 1) / r2;
+  const int64_t tiles1 = need1 ? static_cast<int64_t>(B) * pl.tiles_x * pl.tiles_y1 : 0;
+  const int64_t tiles2 = need2 ? static_cast<int64_t>(B) * pl.tiles_x * pl.tiles_y2 : 0;
+  pl.mts = (C + 15) / 16;
+  pl.chunks1 = (pl.mts + QACC / r1 - 1) / (QACC / r1);
+  pl.chunks2 = (pl.mts + QACC / r2 - 1) / (QACC / r2);
+  while (tiles1 * pl.chunks1 + tiles2 * pl.chunks2 < 2 * sms &&
+         (pl.chunks1 < pl.mts || pl.chunks2 < pl.mts)) {
+    pl.chunks1 = std::min(pl.mts, pl.chunks1 + 1);
+    pl.chunks2 = std::min(pl.mts, pl.chunks2 + 1);
+  }
+  pl.blocks1 = tiles1 * pl.chunks1;
+  pl.blocks2 = tiles2 * pl.chunks2;
+  const int mt1 = (pl.mts + pl.chunks1 - 1) / pl.chunks1;
+  const int mt2 = (pl.mts + pl.chunks2 - 1) / pl.chunks2;
+  pl.smem_bytes = 2 * std::max(need1 ? bwd_bf16_smem(d, pl.nt, r1, mt1, false) : 0,
+                               need2 ? bwd_bf16_smem(d, pl.nt, r2, mt2, true) : 0);
+  return pl;
+}
+
+// The tiles (r1, r2) of a launch: of (8, 8), (2, 4), (1, 1), the one whose
+// blocks (QMIN_BLOCKS resident an SM) need the fewest waves times the longest
+// chain of source rows a block walks (the rows' steps take about the same
+// time whatever the tile); the first of equals. ((4, 8) and (1, 2) were
+// never the fastest at a training level, nor chosen.)
+constexpr int BF16_TILES[3][2] = {{8, 8}, {2, 4}, {1, 1}};
+constexpr int QMIN_BLOCKS = 4;  // blocks an SM: 128 registers a thread, <= 48 KB each
+
+inline int bwd_bf16_tile_choice(int B, int H, int W, int C, int d, bool need1, bool need2,
+                                int sms) {
+  int best = 0;
+  int64_t best_cost = INT64_MAX;
+  for (int k = 0; k < 3; ++k) {
+    const int r1 = BF16_TILES[k][0], r2 = BF16_TILES[k][1];
+    const BwdBf16Plan pl = bwd_bf16_plan(B, H, W, C, d, need1, need2, sms, r1, r2);
+    const int64_t slots = static_cast<int64_t>(QMIN_BLOCKS) * sms;
+    const int chain = std::min((need2 ? r2 : r1) + 2 * d, H + 2 * d);
+    const int64_t cost = (pl.blocks1 + pl.blocks2 + slots - 1) / slots * chain;
+    if (cost < best_cost) {
+      best = k;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+__device__ __forceinline__ int mod8(int64_t v) { return static_cast<int>(((v % 8) + 8) % 8); }
+
+// Four 8x8 matrices of 16-bit values, transposed: lanes 8q .. 8q+7 give the
+// addresses of matrix q's 8 rows (16 bytes each), and lane 4g+t receives in
+// register q the values at column g of rows 2t and 2t+1 (2t in the low half).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4], const __nv_bfloat16* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(s)
+               : "memory");
+}
+
+// Copy channels c_lo .. c_lo+kc-1 of the win staged pixels of one source row
+// (`base`: the index of staged pixel 0's channel c_lo) into dst [win][s], VEC
+// bf16 a copy: zeros outside the frame [q_lo, q_hi) and beyond C. Copies of 16
+// and 8 bytes are asynchronous; single values go through registers.
+template <int VEC>
+__device__ __forceinline__ void bf16_stage_c(const __nv_bfloat16* __restrict__ src,
+                                             __nv_bfloat16* dst, int64_t base, int win, int kc,
+                                             int s, int c_lo, int C, int q_lo, int q_hi, int tid,
+                                             int nthreads) {
+  // copy it = px * slots + cu of the row, it = tid, tid + nthreads, ...:
+  // (px, cu) advance by (step_px, step_cu) with a carry, no division a copy
+  const int slots = kc / VEC;
+  const int step_px = nthreads / slots, step_cu = nthreads - step_px * slots;
+  int px = tid / slots, cu = tid - px * slots;
+  for (; px < win; px += step_px) {
+    const int ch = cu * VEC;
+    const bool real = px >= q_lo && px < q_hi && c_lo + ch < C;
+    const __nv_bfloat16* from = src + (real ? base + int64_t{px} * C + ch : 0);
+    if constexpr (VEC == 1)
+      dst[px * s + ch] = real ? *from : __nv_bfloat16(0.f);
+    else
+      cp_async<2 * VEC>(dst + px * s + ch, from, real);
+    cu += step_cu;
+    if (cu >= slots) {
+      cu -= slots;
+      ++px;
+    }
+  }
+}
+
+// Copy values first .. first+n-1 of the g run that starts at index e_row into
+// shared memory at dst + (e_row mod 8), in the run's order, so that 16-byte
+// units of g are 16-byte units there. Where g is 16-byte aligned, whole units
+// in asynchronous copies: the up to 7 values on either side of the run that
+// share its first and last unit come along (into the row's slack, never
+// read; a unit never crosses the end of an allocation). Otherwise the run's
+// values one at a time.
+__device__ __forceinline__ void bf16_stage_g_run(const __nv_bfloat16* __restrict__ g,
+                                                 int64_t e_row, int first, int n,
+                                                 __nv_bfloat16* dst, bool gvec, int tid,
+                                                 int nthreads) {
+  const int64_t e0 = e_row + first;
+  dst += mod8(e_row) + first;
+  if (gvec) {
+    const int sh = mod8(e0);
+    const int units = (sh + n + 7) / 8;
+    for (int u = tid; u < units; u += nthreads)
+      cp_async<16>(dst + 8 * u - sh, g + e0 + 8 * u - sh, true);
+  } else {
+    for (int e = tid; e < n; e += nthreads) dst[e] = g[e0 + e];
+  }
+}
+
+// One block's tile of one gradient: R output rows from y0, pixels x0 ..
+// x0+8nt-1, m-tiles m_lo .. m_hi-1. WHICH 0: dc1 from the c2 rows y0-D ..
+// y0+R-1+D and the tile's own g rows; WHICH 1: dc2 from the c1 and g rows
+// y0-D .. y0+R-1+D. Staged pixel q of a source row is image pixel x0-D+q.
+// Warp w < nt owns n-tile w (output pixels x0+8w .. x0+8w+7): for each staged
+// source row and each output row it touches (dy index i), the product
+// D[16 ch x 8 px] += A[16 ch x 16 px] B[16 px x 8 px] with A the row's
+// staged pixels 8w .. 8w+15 transposed and B the band of g:
+//   dc1: B[k][n] = g[y0+r, x0+8w+n, i, k-n]
+//   dc2: B[k][n] = g[sy, x0-D+8w+k, i, n-k+2D],
+// zero off the band (dx index outside [0, 2D]) and, for dc2, where staged
+// pixel 8w+k lies outside the frame.
+template <int D, int R, int MTC, int WHICH>
+__device__ __forceinline__ void bwd_bf16_tile(const __nv_bfloat16* __restrict__ src,
+                                              const __nv_bfloat16* __restrict__ g,
+                                              __nv_bfloat16* __restrict__ dst,
+                                              __nv_bfloat16* smem, int b, int y0, int x0,
+                                              int m_lo, int m_hi, int H, int W, int C,
+                                              const BwdBf16Plan& pl, float inv_c) {
+  constexpr int N = 2 * D + 1, NN = N * N;
+  static_assert(8 + 2 * D <= 16, "a band column spans 16 staged pixels");
+  const int tid = threadIdx.x, nthreads = pl.threads;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, t = lane & 3;  // the fragments' group and thread in group
+  const int tx = 8 * pl.nt, win = tx + 8;
+  // s: bf16 a staged pixel, an odd number of 16-byte units, so the 8 rows of
+  // an ldmatrix matrix fall in 8 different bank groups
+  const int mtc = m_hi - m_lo, kc = 16 * mtc, s = kc + 8, c_lo = 16 * m_lo;
+  const int c_stage = win * s;
+  __nv_bfloat16* cring = smem;                    // [BSTAGES][win][s]
+  __nv_bfloat16* gs = smem + BSTAGES * c_stage;   // dc1: [R][g_tile_row]; dc2: [BSTAGES][g_row]
+  const int g_tile_row = round8(tx * NN + 7), g_row = round8(win * NN + 7);
+  const int64_t img = static_cast<int64_t>(b) * H;
+  const int q_lo = max(0, D - x0), q_hi = min(win, W - x0 + D);  // staged pixels in the frame
+  const bool computes = warp < pl.nt && x0 + 8 * warp < W;  // the other warps only stage
+
+  const int s_lo = max(0, D - y0), s_hi = min(R + 2 * D, H - y0 + D);  // rows in the frame
+  auto stage_row = [&](int st, int slot) {  // staged row st: image row y0-D+st
+    const int sy = y0 - D + st;
+    const int64_t base = ((img + sy) * W + x0 - D) * C + c_lo;
+    __nv_bfloat16* cdst = cring + slot * c_stage;
+    if (pl.vec == 8)
+      bf16_stage_c<8>(src, cdst, base, win, kc, s, c_lo, C, q_lo, q_hi, tid, nthreads);
+    else if (pl.vec == 4)
+      bf16_stage_c<4>(src, cdst, base, win, kc, s, c_lo, C, q_lo, q_hi, tid, nthreads);
+    else
+      bf16_stage_c<1>(src, cdst, base, win, kc, s, c_lo, C, q_lo, q_hi, tid, nthreads);
+    if constexpr (WHICH == 1) {
+      bf16_stage_g_run(g, ((img + sy) * W + x0 - D) * NN, q_lo * NN, (q_hi - q_lo) * NN,
+                       gs + slot * g_row, pl.gvec, tid, nthreads);
+    } else {
+      // dc1: the g rows of the output rows that this source row is the first
+      // to reach (row r from source row r, the rows above s_lo with s_lo)
+      const int n_px = min(tx, W - x0);
+      for (int r = st == s_lo ? 0 : st; r <= st && r < R && y0 + r < H; ++r)
+        bf16_stage_g_run(g, ((img + y0 + r) * W + x0) * NN, 0, n_px * NN, gs + r * g_tile_row,
+                         pl.gvec, tid, nthreads);
+    }
+  };
+
+  // the source rows in the frame, one cp.async group each; dc1's g rows
+  // (pixels in the frame) come with them
+#pragma unroll
+  for (int st = 0; st < BSTAGES - 1; ++st) {
+    if (s_lo + st < s_hi) stage_row(s_lo + st, st);
+    cp_async_commit();
+  }
+
+  // The lane's band entries: B registers hold k = 2t + c, c = 0, 1, 8, 9, at
+  // n = gq, where the dx index j lies in the band (and, for dc2, staged pixel
+  // 8w+k in the frame). Their g values sit at lane_g + c STEP past the row's
+  // base (dc1: j = k - gq at output pixel 8w+gq; dc2: j = gq + 2D - k at
+  // staged pixel 8w+k, so k NN + j = 2t (NN - 1) + gq + 2D + c (NN - 1))
+  constexpr int CS[4] = {0, 1, 8, 9};
+  constexpr int STEP = WHICH == 0 ? 1 : NN - 1;
+  bool band[4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int k = 2 * t + CS[kk];
+    const int j = WHICH == 0 ? k - gq : gq + 2 * D - k;
+    band[kk] = j >= 0 && j < N && (WHICH == 0 || (8 * warp + k >= q_lo && 8 * warp + k < q_hi));
+  }
+  const int lane_g = WHICH == 0 ? (8 * warp + gq) * NN + 2 * t - gq
+                                : 8 * warp * NN + 2 * t * (NN - 1) + gq + 2 * D;
+  const uint16_t* g16 = reinterpret_cast<const uint16_t*>(gs) + lane_g;
+  // A g row's run starts at its own 16-byte phase, which moves by W NN mod 8
+  // from one image row to the next. dc1: output row r's values of dy index
+  // i = st - r at g16 + r (g_tile_row - N) + phase of row y0+r + st N; dc2:
+  // source row st's at g16 + its slot + its phase + (2D - st + r) N for
+  // output row r
+  const int dphase = static_cast<int>((static_cast<int64_t>(W) * NN) % 8);
+  const int phase1 = mod8(((img + y0) * W + x0) * NN);
+  int phase = mod8(((img + y0 - D + s_lo) * W + x0 - D) * NN);
+  // ldmatrix: lane 8q+rr gives row rr of matrix q: staged pixel 8w + rr +
+  // 8 (q >> 1), channels 8 (q & 1) .. +7 of the m-tile, so register q is A's
+  // (channels 8 (q & 1) + gq, pixels 8 (q >> 1) + 2t, +1): the mma's A layout
+  const int a_off = (8 * warp + (lane & 7) + 8 * (lane >> 4)) * s + 8 * ((lane >> 3) & 1);
+
+  float acc[R][MTC][4];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int mt = 0; mt < MTC; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][mt][e] = 0.f;
+
+  for (int st = s_lo; st < s_hi; ++st) {
+    cp_async_wait_group<BSTAGES - 2>();
+    // row st has landed, and every thread is past row st-1: its slot is free
+    __syncthreads();
+    const int slot = (st - s_lo) % BSTAGES;
+    if (st + BSTAGES - 1 < s_hi)
+      stage_row(st + BSTAGES - 1, (st - s_lo + BSTAGES - 1) % BSTAGES);
+    cp_async_commit();
+    if (computes) {
+      // the output rows in the frame that this source row reaches (dy index
+      // in [0, 2D] for both gradients): r_lo .. r_hi, the same for the block
+      const int r_lo = max(0, st - 2 * D), r_hi = min(min(R, H - y0) - 1, st);
+      const uint16_t* gb =
+          g16 + (WHICH == 0 ? st * N : slot * g_row + phase + (2 * D - st) * N);
+      // B of output row r (zeros where r is not reached)
+      auto band_b = [&](int r, uint32_t(&b)[2]) {
+        const bool live = r >= r_lo && r <= r_hi;
+        const uint16_t* p =
+            gb + (WHICH == 0 ? r * (g_tile_row - N) + ((phase1 + r * dphase) & 7) : r * N);
+        uint32_t v[4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) v[kk] = live && band[kk] ? p[CS[kk] * STEP] : 0u;
+        b[0] = v[0] | (v[1] << 16);
+        b[1] = v[2] | (v[3] << 16);
+      };
+      const __nv_bfloat16* aw = cring + slot * c_stage + a_off;
+      // keep whichever operand takes fewer registers for the whole step: A
+      // of every m-tile (4 MTC) or B of every row (2 R)
+      if constexpr (4 * MTC < 2 * R) {
+        uint32_t a[MTC][4];
+#pragma unroll
+        for (int mt = 0; mt < MTC; ++mt)
+          if (mt < mtc) ldmatrix_x4_trans(a[mt], aw + 16 * mt);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          uint32_t b[2];
+          band_b(r, b);
+          if (r < r_lo || r > r_hi) continue;
+#pragma unroll
+          for (int mt = 0; mt < MTC; ++mt)
+            if (mt < mtc)
+              mma_bf16_16816(acc[r][mt], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b[0], b[1]);
+        }
+      } else {
+        uint32_t bq[R][2];
+#pragma unroll
+        for (int r = 0; r < R; ++r) band_b(r, bq[r]);
+#pragma unroll
+        for (int mt = 0; mt < MTC; ++mt) {
+          if (mt >= mtc) break;
+          uint32_t a[4];
+          ldmatrix_x4_trans(a, aw + 16 * mt);
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            if (r >= r_lo && r <= r_hi)
+              mma_bf16_16816(acc[r][mt], a[0], a[1], a[2], a[3], bq[r][0], bq[r][1]);
+        }
+      }
+    }
+    if constexpr (WHICH == 1) phase = (phase + dphase) & 7;
+  }
+
+  // D element e of (row r, m-tile mt): channel 16 mt + gq + 8 (e >> 1),
+  // pixel 8w + 2t + (e & 1); scaled by 1/C, cast once, into the output tile
+  // [R][tx][s], which then goes out as NHWC runs
+  __syncthreads();  // every warp is done with the ring and g
+  __nv_bfloat16* outs = smem;
+  if (computes) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int mt = 0; mt < MTC; ++mt) {
+        if (mt >= mtc) break;
+        __nv_bfloat16* o = outs + (r * tx + 8 * warp + 2 * t) * s + 16 * mt + gq;
+        o[0] = __float2bfloat16(acc[r][mt][0] * inv_c);
+        o[s] = __float2bfloat16(acc[r][mt][1] * inv_c);
+        o[8] = __float2bfloat16(acc[r][mt][2] * inv_c);
+        o[s + 8] = __float2bfloat16(acc[r][mt][3] * inv_c);
+      }
+  }
+  __syncthreads();
+  const int vec = pl.vec;
+  const int units = min(kc, C - c_lo) / vec;  // whole: C % vec == 0, c_lo % 16 == 0
+  const int per_row = min(tx, W - x0) * units;
+  for (int u = tid; u < R * per_row; u += nthreads) {
+    const int r = u / per_row, px = (u - r * per_row) / units;
+    const int ch = (u - r * per_row - px * units) * vec;
+    if (y0 + r >= H) break;
+    const __nv_bfloat16* from = outs + (r * tx + px) * s + ch;
+    __nv_bfloat16* to = dst + ((img + y0 + r) * W + x0 + px) * C + c_lo + ch;
+    if (vec == 8)
+      *reinterpret_cast<uint4*>(to) = *reinterpret_cast<const uint4*>(from);
+    else if (vec == 4)
+      *reinterpret_cast<uint2*>(to) = *reinterpret_cast<const uint2*>(from);
+    else
+      *to = *from;
+  }
+}
+
+// Grid: one block a (tile, channel chunk) of each gradient asked for, the
+// chunk fastest; dc2's blocks first (each of its source rows brings a g row),
+// then dc1's; pl.threads threads.
+template <int D, int R1, int R2>
+__global__ void __launch_bounds__(32 * QTX / 8, QMIN_BLOCKS)
+cost_volume_bwd_bf16(const __nv_bfloat16* __restrict__ c1, const __nv_bfloat16* __restrict__ c2,
+                     const __nv_bfloat16* __restrict__ g, __nv_bfloat16* __restrict__ dc1,
+                     __nv_bfloat16* __restrict__ dc2, int H, int W, int C, BwdBf16Plan pl,
+                     float inv_c) {
+  extern __shared__ uint4 qsmem_u4[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(qsmem_u4);
+  const bool is_dc2 = blockIdx.x < pl.blocks2;
+  const int64_t z = is_dc2 ? blockIdx.x : blockIdx.x - pl.blocks2;
+  const int chunks = is_dc2 ? pl.chunks2 : pl.chunks1;
+  const int chunk = static_cast<int>(z % chunks);
+  const int64_t tl = z / chunks;
+  const int tiles_y = is_dc2 ? pl.tiles_y2 : pl.tiles_y1;
+  const int x0 = static_cast<int>(tl % pl.tiles_x) * 8 * pl.nt;
+  const int y0 = static_cast<int>(tl / pl.tiles_x % tiles_y) * (is_dc2 ? R2 : R1);
+  const int b = static_cast<int>(tl / pl.tiles_x / tiles_y);
+  const int m_lo = chunk * pl.mts / chunks, m_hi = (chunk + 1) * pl.mts / chunks;
+  if (is_dc2)
+    bwd_bf16_tile<D, R2, QACC / R2, 1>(c1, g, dc2, smem, b, y0, x0, m_lo, m_hi, H, W, C, pl,
+                                       inv_c);
+  else
+    bwd_bf16_tile<D, R1, QACC / R1, 0>(c2, g, dc1, smem, b, y0, x0, m_lo, m_hi, H, W, C, pl,
+                                       inv_c);
+}
+
+template <int D, int R1, int R2>
+cudaError_t launch_bwd_bf16_tile(const __nv_bfloat16* c1, const __nv_bfloat16* c2,
+                                 const __nv_bfloat16* g, __nv_bfloat16* dc1, __nv_bfloat16* dc2,
+                                 int B, int H, int W, int C, int vec, bool gvec, int sms,
+                                 cudaStream_t stream) {
+  auto kernel = cost_volume_bwd_bf16<D, R1, R2>;
+  // the most shared memory a plan of these tiles takes (4 n-tiles, all of
+  // a thread's m-tiles), opted into once per device
+  const int most = 2 * std::max(bwd_bf16_smem(D, QTX / 8, R1, QACC / R1, false),
+                                bwd_bf16_smem(D, QTX / 8, R2, QACC / R2, true));
+  static bool opted[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!opted[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (err != cudaSuccess) return err;
+    opted[dev] = true;
+  }
+  BwdBf16Plan pl = bwd_bf16_plan(B, H, W, C, D, dc1 != nullptr, dc2 != nullptr, sms, R1, R2);
+  pl.vec = vec;
+  pl.gvec = gvec;
+  const int64_t blocks = pl.blocks1 + pl.blocks2;
+  if (blocks > INT32_MAX || pl.smem_bytes > most) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(blocks), pl.threads, pl.smem_bytes, stream>>>(
+      c1, c2, g, dc1, dc2, H, W, C, pl, 1.0f / static_cast<float>(C));
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bwd_bf16(const void* c1, const void* c2, const void* g, void* dc1, void* dc2,
+                            int B, int H, int W, int C, cudaStream_t stream) {
+  if (!dc1 && !dc2) return cudaSuccess;
+  static int sms[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!sms[dev]) {
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(c1) | reinterpret_cast<uintptr_t>(c2) |
+                         reinterpret_cast<uintptr_t>(dc1) | reinterpret_cast<uintptr_t>(dc2);
+  const int vec = (C % 8 == 0 && bits % 16 == 0) ? 8 : (C % 4 == 0 && bits % 8 == 0) ? 4 : 1;
+  const bool gvec = reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  const auto* a = static_cast<const __nv_bfloat16*>(c1);
+  const auto* b = static_cast<const __nv_bfloat16*>(c2);
+  const auto* gb = static_cast<const __nv_bfloat16*>(g);
+  auto* o1 = static_cast<__nv_bfloat16*>(dc1);
+  auto* o2 = static_cast<__nv_bfloat16*>(dc2);
+  switch (bwd_bf16_tile_choice(B, H, W, C, D, dc1 != nullptr, dc2 != nullptr, sms[dev])) {
+    case 0:
+      return launch_bwd_bf16_tile<D, 8, 8>(a, b, gb, o1, o2, B, H, W, C, vec, gvec, sms[dev],
+                                           stream);
+    case 1:
+      return launch_bwd_bf16_tile<D, 2, 4>(a, b, gb, o1, o2, B, H, W, C, vec, gvec, sms[dev],
+                                           stream);
+    default:
+      return launch_bwd_bf16_tile<D, 1, 1>(a, b, gb, o1, o2, B, H, W, C, vec, gvec, sms[dev],
+                                           stream);
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the tensor-core kernel),
@@ -1202,9 +1601,9 @@ extern "C" int fisr_cost_volume_backward(const void* c1, const void* c2, const v
   if (dtype == 0 && search_range == 4) return launch_bwd_f32<4>(c1, c2, g, dc1, dc2, B, H, W, C, s);
   if (dtype == 0 && search_range == 2) return launch_bwd_f32<2>(c1, c2, g, dc1, dc2, B, H, W, C, s);
   if (dtype == 1 && search_range == 4)
-    return launch_bwd<4, __nv_bfloat16>(c1, c2, g, dc1, dc2, B, H, W, C, s);
+    return launch_bwd_bf16<4>(c1, c2, g, dc1, dc2, B, H, W, C, s);
   if (dtype == 1 && search_range == 2)
-    return launch_bwd<2, __nv_bfloat16>(c1, c2, g, dc1, dc2, B, H, W, C, s);
+    return launch_bwd_bf16<2>(c1, c2, g, dc1, dc2, B, H, W, C, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -4,9 +4,10 @@ the Hopper kernel that replaces fisr_tpu/kernels/cost_volume_pallas.py.
 The library holds two forward kernels, chosen by type alone: bf16 pairs take
 the tensor-core kernel (a banded `mma.sync` product, variant "mma_bf16"), f32
 pairs the CUDA-core kernel (variant "fma_f32"); and two backward kernels,
-also by type, each computing both input gradients in one launch: f32 streams
-the source rows through register tiles (variant "bwd_f32"), bf16 gathers a
-row at a time (variant "bwd_bf16").
+also by type, each computing both input gradients in one launch and each
+streaming the source rows a tile needs: f32 through register tiles on the
+CUDA cores (variant "bwd_f32"), bf16 as banded `mma.sync` products on the
+tensor cores (variant "bwd_bf16").
 
 `cost_volume` takes the kernel for CUDA tensors and the plain version
 (fisr_tpu_torch/ops/cost_volume.py) for CPU tensors; `cost_volume_cuda`

@@ -14,8 +14,11 @@ gradients) at the five level shapes of a pwc_train step ([8, 256>>l, 448>>l,
 C]) and of a joint step ([4, 192>>l, 192>>l, C]), f32 and bf16: the card's
 time from a CUDA-graph replay of 20 launches, the two trees in turns,
 `--rounds` times, beside each shape's byte bound (g, c1, c2 read once, dc1,
-dc2 written once at 3.35 TB/s). Prints the card's name and power limit; the
-last line is one JSON object.
+dc2 written once at 3.35 TB/s). This tree's source is also built once for
+each of the bf16 kernel's tiles with the choice forced (`this_t0`,
+`this_t1`, ...: bwd_bf16_tile_choice's switch replaced by the tile's index)
+and timed beside the others in bf16. Prints the card's name and power limit;
+the last line is one JSON object.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -77,10 +81,22 @@ def main() -> int:
 
     out_dir = os.path.join(repo, "build", "time_cost_volume_backward")
     os.makedirs(out_dir, exist_ok=True)
-    trees = {"this": repo, "root": root}
+    sources = {name: os.path.join(tree, "fisr_tpu_torch", "csrc", "cost_volume.cu")
+               for name, tree in (("this", repo), ("root", root))}
+    with open(sources["this"]) as f:
+        text = f.read()
+    tiles = re.search(r"BF16_TILES\[(\d+)\]", text)
+    choice = re.search(r"switch \(bwd_bf16_tile_choice\([^;]*\)\) \{", text)
+    if not (tiles and choice):
+        raise RuntimeError("this tree's source has no bf16 tile choice to force")
+    forced = []  # timed in bf16 only
+    for k in range(int(tiles.group(1))):
+        forced.append(f"this_t{k}")
+        sources[forced[-1]] = os.path.join(out_dir, f"{forced[-1]}.cu")
+        with open(sources[forced[-1]], "w") as f:
+            f.write(text.replace(choice.group(0), f"switch ({k}) {{"))
     procs = {}
-    for name, tree in trees.items():
-        src = os.path.join(tree, "fisr_tpu_torch", "csrc", "cost_volume.cu")
+    for name, src in sources.items():
         procs[name] = subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-o", os.path.join(out_dir, f"{name}.so"), src],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -115,7 +131,9 @@ def main() -> int:
                 g = torch.randn(tuple(shape[:3]) + ((2 * D + 1) ** 2,), device="cuda",
                                 generator=gen).to(dtype)
                 want = [w.float() for w in cost_volume_backward(a, b, g, D)]
-                for name, lib in libs.items():
+                names = [n for n in libs if dtype == torch.bfloat16 or n not in forced]
+                for name in names:
+                    lib = libs[name]
                     for x, y in zip(backward(lib, a, b, g), want):
                         x = x.float()
                         ok = (torch.allclose(x, y, rtol=1e-5, atol=1e-5) if dtype == torch.float32
@@ -123,9 +141,9 @@ def main() -> int:
                         if not ok:
                             raise AssertionError(f"{name} tree's backward {shape} {dtype}: max "
                                                  f"|diff| {(x - y).abs().max().item()}")
-                times = {name: [] for name in libs}
+                times = {name: [] for name in names}
                 for rnd in range(args.rounds):
-                    order = list(libs) if rnd % 2 == 0 else list(libs)[::-1]
+                    order = names if rnd % 2 == 0 else names[::-1]
                     for name in order:
                         times[name].append(graph_ms(lambda: backward(libs[name], a, b, g)))
                 row = {"step": step, "shape": list(shape), "dtype": str(dtype).split(".")[1],
@@ -133,11 +151,13 @@ def main() -> int:
                        **{f"{name}_ms": min(t) for name, t in times.items()},
                        **{f"{name}_runs_ms": t for name, t in times.items()}}
                 rows.append(row)
-                print(f"{step} {tuple(shape)} {row['dtype']}: this {row['this_ms']:.4f} ms, root "
-                      f"{row['root_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms", flush=True)
+                print(f"{step} {tuple(shape)} {row['dtype']}: "
+                      + ", ".join(f"{n} {row[n + '_ms']:.4f} ms" for n in names)
+                      + f", bound {row['bound_ms']:.4f} ms", flush=True)
     totals = {f"{step}_{dt}_{name}_ms": sum(r[f"{name}_ms"] for r in rows
                                            if r["step"] == step and r["dtype"] == dt)
-              for step in SHAPES for dt in ("float32", "bfloat16") for name in libs}
+              for step in SHAPES for dt in ("float32", "bfloat16") for name in libs
+              if dt == "bfloat16" or name not in forced}
     print(json.dumps({"totals": totals, "rows": rows}))
     return 0
 

@@ -9,12 +9,14 @@ uniform [-1, 1) inputs: against autograd of `cost_volume` 4.8e-7 (bound
 
 The index maps of the kernels (the bf16 kernel's 8-pixel tiles against
 16-pixel c2 windows; the f32 kernel's staged rows, pixel groups and channel
-split over a cluster; the bf16 backward's gathered tiles; the f32 backward's
-streamed source rows, shared-memory g runs at their 16-byte phase, register
-tiles and channel split, with NaN in every slot it does not stage) are
-emulated in plain PyTorch and held against the plain version here (the f32
-backward's at atol 1e-6: measured max |diff| 4.8e-7); the kernels
-themselves run in the `cuda`-marked tests.
+split over a cluster; the f32 backward's streamed source rows, shared-memory
+g runs at their 16-byte phase, register tiles and channel split; the bf16
+backward's staged windows, ldmatrix.trans and mma lane maps, band entries at
+the kernel's own offsets, channel chunks and tile choice; both backward
+emulations with NaN in every slot the kernel does not stage) are emulated in
+plain PyTorch and held against the plain version here (both backward
+emulations at atol 1e-6: measured max |diff| 4.8e-7 f32, 3.0e-7 bf16's map);
+the kernels themselves run in the `cuda`-marked tests.
 """
 
 import numpy as np
@@ -300,62 +302,6 @@ def test_fma_split_fills_the_card_at_the_inference_levels():
     assert splits == {2: 1, 3: 1, 4: 1, 5: 4, 6: 8}
 
 
-# ---- the backward kernel's gathered tiles, emulated --------------------------
-
-BTX, BKC = 32, 32  # csrc/cost_volume.cu, backward kernel
-
-
-def _gathered_backward(c1, c2, g, d):
-    """Both gradients the way the backward kernel takes them: a tile is BTX
-    pixels x BKC channels of one row of one gradient; for each dy index i it
-    stages the gathered input's row (BTX+2d pixels from x0-d; c2 row y+i-d for
-    dc1, c1 row y-(i-d) for dc2) and g's 2d+1 values of that dy times 1/C (g's
-    row y for dc1, y-(i-d) for dc2); output pixel p sums, over dx index j,
-    g staged pixel s times input staged pixel t: s = p+d, t = p+j for dc1;
-    s = t = p+2d-j for dc2."""
-    b, h, w, c = c1.shape
-    n = 2 * d + 1
-    pw = BTX + 2 * d
-    grads = []
-    for which, src in ((0, c2), (1, c1)):
-        dst = torch.zeros(b, h, w, c)
-        for bb in range(b):
-            for y in range(h):
-                for x0 in range(0, w, BTX):
-                    for c0 in range(0, c, BKC):
-                        acc = torch.zeros(BTX, BKC)
-                        for i in range(n):
-                            sy = y + i - d if which == 0 else y - (i - d)
-                            gy = y if which == 0 else sy
-                            xs, gs = torch.zeros(pw, BKC), torch.zeros(pw, n)
-                            lo, hi = max(0, d - x0), min(pw, w - x0 + d)
-                            if 0 <= sy < h and lo < hi:
-                                run = src[bb, sy, x0 - d + lo:x0 - d + hi, c0:c0 + BKC]
-                                xs[lo:hi, :run.shape[1]] = run
-                            if 0 <= gy < h and lo < hi:
-                                gs[lo:hi] = g[bb, gy, x0 - d + lo:x0 - d + hi,
-                                              i * n:(i + 1) * n] * (1.0 / c)
-                            p = torch.arange(BTX)
-                            for j in range(n):
-                                s = p + d if which == 0 else p + 2 * d - j
-                                t = p + j if which == 0 else s
-                                acc += gs[s, j, None] * xs[t]
-                        cols, chans = min(BTX, w - x0), min(BKC, c - c0)
-                        dst[bb, y, x0:x0 + cols, c0:c0 + chans] = acc[:cols, :chans]
-        grads.append(dst)
-    return tuple(grads)
-
-
-@pytest.mark.parametrize("shape,d", [((2, 9, 53, 12), 4), ((1, 7, 13, 3), 2),
-                                     ((1, 1, 1, 1), 4), ((1, 2, 5, 70), 2),
-                                     ((1, 3, 33, 33), 4)])
-def test_backward_gather_map_matches_plain(shape, d):
-    a, b, g = (torch.from_numpy(x) for x in _uniform(11, shape, d))
-    got = _gathered_backward(a, b, g, d)
-    for x, y in zip(got, cost_volume_backward(a, b, g, d)):
-        torch.testing.assert_close(x, y, rtol=0, atol=1e-6)
-
-
 # ---- the f32 backward kernel's streamed rows and register tiles, emulated ------
 
 BTILE_PX, BMAX_CQ, BMIN_THREADS = 32, 8, 32  # csrc/cost_volume.cu, cost_volume_bwd_f32
@@ -536,6 +482,245 @@ def test_backward_plan_at_the_pwc_train_levels():
                      (2, 2, 28, 32, 384, 112), (1, 2, 14, 32, 384, 112), (1, 1, 7, 32, 448, 56)]
 
 
+# ---- the bf16 backward kernel's banded tensor-core products, emulated -------
+
+QTX, QACC, QMIN_BLOCKS = 32, 16, 4  # csrc/cost_volume.cu, cost_volume_bwd_bf16
+BF16_TILES = [(8, 8), (2, 4), (1, 1)]  # (dc1's tile rows, dc2's)
+
+
+def _bf16_tile_choice(b, h, w, c, d, sms):
+    """bwd_bf16_tile_choice: the tiles whose plan needs the fewest waves of
+    QMIN_BLOCKS blocks an SM times the longest chain of source rows a block
+    walks; the first of equals."""
+    costs = []
+    for tile in BF16_TILES:
+        pl = _bf16_plan(b, h, w, c, d, sms, tile)
+        waves = -(-pl["blocks"] // (QMIN_BLOCKS * sms))
+        costs.append(waves * min(tile[1] + 2 * d, h + 2 * d))
+    return BF16_TILES[costs.index(min(costs))]
+
+
+def _bf16_plan(b, h, w, c, d=4, sms=H100_SMS, tile=None):
+    """bwd_bf16_plan, both gradients asked for: tiles of r1 (dc1) or r2 (dc2)
+    rows x 8 nt pixels (nt <= 4, as even as W allows); C's 16-channel m-tiles
+    split evenly into chunks, at first the fewest whose m-tiles fit QACC //
+    rows a thread, both counts then grown by one while the launch gives fewer
+    than two blocks an SM."""
+    r1, r2 = _bf16_tile_choice(b, h, w, c, d, sms) if tile is None else tile
+    tiles_x = -(-w // QTX)
+    nt = -(-(-(-w // 8)) // tiles_x)
+    tiles1, tiles2 = b * tiles_x * -(-h // r1), b * tiles_x * -(-h // r2)
+    mts = -(-c // 16)
+    ch1, ch2 = -(-mts // (QACC // r1)), -(-mts // (QACC // r2))
+    while tiles1 * ch1 + tiles2 * ch2 < 2 * sms and (ch1 < mts or ch2 < mts):
+        ch1, ch2 = min(mts, ch1 + 1), min(mts, ch2 + 1)
+    return {"r1": r1, "r2": r2, "nt": nt, "tiles_x": tiles_x, "tiles_y1": -(-h // r1),
+            "tiles_y2": -(-h // r2), "mts": mts, "chunks1": ch1, "chunks2": ch2,
+            "blocks1": tiles1 * ch1, "blocks2": tiles2 * ch2,
+            "blocks": tiles1 * ch1 + tiles2 * ch2}
+
+
+def _fragment_maps():
+    """The lane maps of one warp's m16n8k16 product, from the PTX rules.
+    ldmatrix.x4.trans: lane 8q+rr gives the address of row rr of matrix q,
+    the kernel's a_off: staged pixel rr + 8 (q >> 1), channel 8 (q & 1); lane
+    4g+t receives in register q column g of rows 2t and 2t+1. mma A register
+    q of lane 4g+t holds A[g + 8 (q & 1)][2t + 8 (q >> 1) + half]; B register
+    q holds B[2t + 8q + half][g]; D element e is D[g + 8 (e >> 1)][2t + (e & 1)].
+    Returns (pixel, channel) of the staged window for each A[m][k], (k, n)
+    for each lane's four band entries kk, and (pixel, channel) of the output
+    tile for each D[m][n]."""
+    a_pix, a_ch = torch.empty(16, 16, dtype=torch.long), torch.empty(16, 16, dtype=torch.long)
+    b_k, b_n = torch.empty(32, 4, dtype=torch.long), torch.empty(32, 4, dtype=torch.long)
+    d_pix, d_ch = torch.empty(16, 8, dtype=torch.long), torch.empty(16, 8, dtype=torch.long)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for q in range(4):
+            for half in range(2):
+                src = 8 * q + 2 * t + half  # the lane whose row address holds the value
+                pix = (src & 7) + 8 * (src >> 4)
+                ch = 8 * ((src >> 3) & 1) + g
+                m, k = g + 8 * (q & 1), 2 * t + 8 * (q >> 1) + half
+                a_pix[m, k], a_ch[m, k] = pix, ch
+        for kk in range(4):
+            b_k[lane, kk], b_n[lane, kk] = 2 * t + (kk & 1) + 8 * (kk >> 1), g
+        for e in range(4):
+            m, n = g + 8 * (e >> 1), 2 * t + (e & 1)
+            # the kernel's stores o[0], o[s], o[8], o[s + 8]
+            d_pix[m, n], d_ch[m, n] = 2 * t + (e & 1), g + 8 * (e >> 1)
+    return a_pix, a_ch, b_k, b_n, d_pix, d_ch
+
+
+def _round8(v):
+    return -(-v // 8) * 8
+
+
+def _banded_backward(c1, c2, g, d, sms=H100_SMS, tile=None):
+    """Both gradients the way cost_volume_bwd_bf16 takes them, block by block:
+    the plan above; dc2's blocks first, then dc1's, the chunk fastest; per
+    block (tile of R rows x tx = 8 nt pixels, m-tiles m_lo .. m_hi - 1) the
+    source rows y0-d .. y0+R-1+d in the frame in order, each staged as a
+    window of tx+8 pixels x s = 16 (m_hi - m_lo) + 8 channels (zeros outside
+    the frame and beyond C); g in flat shared-memory rows as the whole 8-value
+    units that hold each run, at the run's phase (dc1: the tile's R rows;
+    dc2: each source row's pixels in the frame). Every slot not staged holds
+    NaN. Warp w (n-tile w, if it starts in the frame) builds A from the window
+    through the ldmatrix.trans lane map and B from each lane's band entries
+    (for dc2 zero where the staged pixel lies outside the frame), and adds
+    A @ B in f32 for every live output row; D goes through its lane map into
+    the output tile [R, tx, s], scaled by 1/C, and out where it lies in the
+    frame."""
+    b, h, w, c = c1.shape
+    n = 2 * d + 1
+    nn = n * n
+    pl = _bf16_plan(b, h, w, c, d, sms, tile)
+    nt, mts, tx = pl["nt"], pl["mts"], 8 * pl["nt"]
+    win = tx + 8
+    g_tile_row, g_row = _round8(tx * nn + 7), _round8(win * nn + 7)
+    a_pix, a_ch, b_k, b_n, d_pix, d_ch = _fragment_maps()
+    gq = b_n  # the lane's group: its B column
+    t_lane = (b_k & 7) >> 1  # the lane's thread in group: k = 2t + c
+    cs = b_k - 2 * t_lane  # c = 0, 1, 8, 9
+    j = b_k - gq  # dc1's dx index of each band entry; dc2's is 2d - j
+    gflat = g.reshape(-1)
+    outs = [torch.full((b, h, w, c), float("nan")) for _ in range(2)]
+    written = [torch.zeros((b, h, w, c), dtype=torch.int32) for _ in range(2)]
+
+    def g_run(dst, e_row, first, count):
+        """bf16_stage_g_run on a 16-byte aligned g: the whole 8-value units
+        that hold the run, at the run's phase (Python's % is the kernel's
+        non-negative mod8); a unit's values past g's end are NaN here."""
+        e0 = e_row + first
+        lo, hi = e0 - e0 % 8, -(-(e0 + count) // 8) * 8
+        units = torch.full((hi - lo,), float("nan"))
+        units[:min(hi, gflat.numel()) - lo] = gflat[lo:hi]
+        start = e_row % 8 + first - e0 % 8
+        dst[start:start + hi - lo] = units
+
+    for z in range(pl["blocks"]):
+        which = 1 if z < pl["blocks2"] else 0
+        z = z if which else z - pl["blocks2"]
+        chunks = pl["chunks2"] if which else pl["chunks1"]
+        chunk, t = z % chunks, z // chunks
+        R, tiles_y = (pl["r2"], pl["tiles_y2"]) if which else (pl["r1"], pl["tiles_y1"])
+        x0 = t % pl["tiles_x"] * tx
+        y0 = t // pl["tiles_x"] % tiles_y * R
+        bb = t // pl["tiles_x"] // tiles_y
+        img = bb * h
+        m_lo, m_hi = chunk * mts // chunks, (chunk + 1) * mts // chunks
+        mtc = m_hi - m_lo
+        kc, c_lo = 16 * mtc, 16 * m_lo
+        s = kc + 8
+        chans = min(kc, c - c_lo)
+        src = c2 if which == 0 else c1
+        q_lo, q_hi = max(0, d - x0), min(win, w - x0 + d)
+        if which == 0:
+            gtile = torch.full((R * g_tile_row,), float("nan"))
+            for r in range(R):
+                if y0 + r < h:
+                    g_run(gtile[r * g_tile_row:], ((img + y0 + r) * w + x0) * nn, 0,
+                          min(tx, w - x0) * nn)
+        acc = torch.zeros(R, nt, mtc, 16, 8)
+        for st in range(max(0, d - y0), min(R + 2 * d, h - y0 + d)):
+            sy = y0 - d + st
+            ring = torch.full((win, s), float("nan"))
+            ring[:, :kc] = 0.0
+            ring[q_lo:q_hi, :chans] = src[bb, sy, x0 - d + q_lo:x0 - d + q_hi, c_lo:c_lo + chans]
+            if which == 1:
+                grow = torch.full((g_row,), float("nan"))
+                g_run(grow, ((img + sy) * w + x0 - d) * nn, q_lo * nn, (q_hi - q_lo) * nn)
+            for wp in range(nt):
+                if x0 + 8 * wp >= w:
+                    continue
+                for r in range(R):
+                    i = st - r if which == 0 else r - st + 2 * d
+                    if not (0 <= i < n and y0 + r < h):
+                        continue
+                    # the kernel's addresses: lane term + row or step term + c step
+                    if which == 0:  # g at the output pixel 8w + gq of row r, dx index k - gq
+                        jj = j
+                        lane_g = (8 * wp + gq) * nn + 2 * t_lane - gq
+                        row_g = r * g_tile_row + ((img + y0 + r) * w + x0) * nn % 8 - r * n
+                        idx = lane_g + st * n + row_g + cs
+                        gbuf = gtile
+                    else:  # g at the staged pixel 8w + k of this row, dx index gq + 2d - k
+                        jj = 2 * d - j
+                        lane_g = 8 * wp * nn + 2 * t_lane * (nn - 1) + gq + 2 * d
+                        phase = ((img + sy) * w + x0 - d) * nn % 8
+                        idx = lane_g + phase + (2 * d - st) * n + r * n + cs * (nn - 1)
+                        gbuf = grow
+                    band = (jj >= 0) & (jj < n)
+                    if which == 1:  # and the staged pixel in the frame
+                        band &= (8 * wp + b_k >= q_lo) & (8 * wp + b_k < q_hi)
+                    bmat = torch.zeros(16, 8)
+                    bmat[b_k[band], b_n[band]] = gbuf[idx[band]]
+                    for mt in range(mtc):
+                        amat = ring[8 * wp + a_pix, 16 * mt + a_ch]
+                        acc[r, wp, mt] += amat @ bmat
+        tile_out = torch.full((R, tx, s), float("nan"))
+        for wp in range(nt):
+            if x0 + 8 * wp < w:
+                for mt in range(mtc):
+                    tile_out[:, 8 * wp + d_pix, 16 * mt + d_ch] = acc[:, wp, mt] * (1.0 / c)
+        rows, cols = min(R, h - y0), min(tx, w - x0)
+        outs[which][bb, y0:y0 + rows, x0:x0 + cols, c_lo:c_lo + chans] = (
+            tile_out[:rows, :cols, :chans])
+        written[which][bb, y0:y0 + rows, x0:x0 + cols, c_lo:c_lo + chans] += 1
+    for cnt in written:
+        assert bool((cnt == 1).all())  # every output element written exactly once
+    return tuple(outs), pl
+
+
+@pytest.mark.parametrize("tile", BF16_TILES)
+@pytest.mark.parametrize("shape,d", [((2, 9, 53, 12), 4), ((1, 7, 13, 3), 2),
+                                     ((1, 1, 1, 1), 4), ((1, 2, 5, 70), 2),
+                                     ((1, 3, 33, 33), 4),
+                                     ((2, 4, 7, 196), 4),   # level 6's W and C: one n-tile, 13 m-tiles
+                                     ((1, 5, 19, 40), 2)])  # d = 2, W off the n-tiles, a ragged m-tile
+def test_backward_band_map_matches_plain(shape, d, tile):
+    a, b, g = (torch.from_numpy(x) for x in _uniform(11, shape, d))
+    got, pl = _banded_backward(a, b, g, d, tile=tile)
+    assert (pl["r1"], pl["r2"]) == tile
+    for x, y in zip(got, cost_volume_backward(a, b, g, d)):
+        torch.testing.assert_close(x, y, rtol=0, atol=1e-6)
+
+
+def test_backward_band_map_splits_channels_over_blocks():
+    """With one SM to fill, C = 196's 13 m-tiles fill dc1's 2 chunks (6 and 7
+    m-tiles: 8 fit a thread of its 2 rows) and dc2's 4 (3 or 4: 4 fit its 4
+    rows); with the card's 132 both grow to one m-tile a block: the same
+    sums, split over more blocks."""
+    a, b, g = (torch.from_numpy(x) for x in _uniform(13, (1, 2, 7, 196), 4))
+    wide, wide_plan = _banded_backward(a, b, g, 4, sms=1, tile=(2, 4))
+    split, split_plan = _banded_backward(a, b, g, 4, tile=(2, 4))
+    assert (wide_plan["chunks1"], wide_plan["chunks2"]) == (2, 4)
+    assert (split_plan["chunks1"], split_plan["chunks2"]) == (13, 13)
+    for x, y in zip(wide, split):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("shape", PWC_TRAIN_SHAPES + JOINT_SHAPES)
+def test_bf16_backward_plan_fills_the_card_at_the_training_levels(shape):
+    """Two blocks an SM or more at every level that the PWC and joint steps
+    launch, both gradients asked for; tiles no wider than the frame needs and
+    no chunk with more m-tiles than a thread's QACC products allow."""
+    pl = _bf16_plan(*shape)
+    assert pl["blocks"] >= 2 * H100_SMS
+    assert pl["tiles_x"] * 8 * pl["nt"] - shape[2] < 8 * pl["tiles_x"]
+    for r, chunks in ((pl["r1"], pl["chunks1"]), (pl["r2"], pl["chunks2"])):
+        assert chunks <= pl["mts"] and -(-pl["mts"] // chunks) * r <= QACC
+
+
+def test_bf16_backward_plan_at_the_pwc_train_levels():
+    """(dc1's tile rows, dc2's, tile width, chunks of dc1 and of dc2, blocks)
+    at levels 2..6 of a pwc_train step: the tallest tile where the launch is
+    large, a block's chain shortest where it is small."""
+    plans = [(p["r1"], p["r2"], 8 * p["nt"], p["chunks1"], p["chunks2"], p["blocks"])
+             for p in (_bf16_plan(*s) for s in PWC_TRAIN_SHAPES)]
+    assert plans == [(8, 8, 32, 1, 1, 512), (2, 4, 32, 1, 1, 384), (1, 1, 32, 2, 2, 512),
+                     (1, 1, 16, 3, 3, 384), (1, 1, 8, 5, 5, 320)]
+
+
 # ---- on the card: the kernel against its plain version -----------------------
 
 @pytest.fixture
@@ -636,7 +821,10 @@ def _assert_backward_close(got, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,d", [((1, 1, 1, 1), 4), ((2, 37, 53, 3), 2),
                                      ((2, 37, 53, 3), 4), ((2, 9, 131, 196), 4),
-                                     ((1, 5, 40, 20), 4), ((4, 48, 48, 32), 4)]
+                                     ((1, 5, 40, 20), 4), ((4, 48, 48, 32), 4),
+                                     ((2, 4, 7, 196), 4), ((1, 5, 19, 40), 2),
+                                     ((2, 9, 53, 12), 4), ((1, 3, 33, 33), 4),
+                                     ((1, 2, 5, 70), 2)]
                          + [(s, 4) for s in PWC_TRAIN_SHAPES])
 def test_backward_kernel_matches_plain_on_card(cuda_device, dtype, shape, d):
     a, b, g = _card_triple(cuda_device, 4, shape, d, dtype)
@@ -680,6 +868,22 @@ def test_kernels_handle_unaligned_views_on_card(cuda_device, dtype):
         assert ((got - want).abs() <= 1e-5 + 2.0**-7 * want.abs()).all()
     g = torch.randn((1, 6, 81, 20), device=cuda_device, generator=gen).to(dtype).transpose(2, 3)
     assert not g.is_contiguous()
+    _assert_backward_close(kernel.cost_volume_backward_cuda(a, b, g, 4),
+                           cost_volume_backward(a, b, g, 4), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_takes_unaligned_g_on_card(cuda_device, dtype):
+    """A contiguous output gradient that starts 3 elements into its storage:
+    g's runs take the one-value-at-a-time copies instead of whole 16-byte
+    units."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    shape = (2, 7, 21, 40)
+    a, b = (torch.randn(shape, device=cuda_device, generator=gen).to(dtype) for _ in range(2))
+    n = 2 * 7 * 21 * 81
+    g = torch.randn(n + 3, device=cuda_device, generator=gen).to(dtype)[3:].view(2, 7, 21, 81)
+    assert g.is_contiguous() and g.data_ptr() % 16 != 0
     _assert_backward_close(kernel.cost_volume_backward_cuda(a, b, g, 4),
                            cost_volume_backward(a, b, g, 4), dtype)
 
