@@ -8,6 +8,15 @@ Phases (any failure raises and exits non-zero):
    fisr_tpu_torch/csrc/ (one nvcc per source, all started together); ptxas
    must report no spills for any of its kernels (bf16 mma.sync, f32 FMA,
    backward).
+   native - the host runtime (fisr_tpu_torch/native): g++ builds
+   fisr_tpu_torch/csrc/native.cc; every function against its plain version
+   (numpy, the stdlib PNG codec of data/png_io, the crc loop of
+   convert/tensor_bundle) at 1024x1920 and 2048x3840 (colour, PNG encode to
+   bytes on all threads and on one, where the zlib versions agree the same
+   bytes, and to a file, PNG decode of filter-0 and Paeth files from bytes
+   and from a file, crc32c, the row gather, the (2, 2) halo patches; a
+   6-frame batch decode) and the three colour conversions over all 2^24 u8
+   triples; each timed beside its plain version, with the host's cores.
 2. kernel - the cost-volume kernels (bf16: mma.sync, f32: FMA) against the
    plain PyTorch version on the card at the five PWC-Net level shapes of a
    1024x1920 window (B=2, d=4), at ragged shapes (d=2 and 4, odd W and H,
@@ -28,7 +37,9 @@ Phases (any failure raises and exits non-zero):
    PNG frames, full-width FISRnet (ch=64) and PWC-Net lg-6-2, bf16,
    flow_upscale=2: 6 outputs of 2048x3840, 15 cost-volume launches
    (3 pairs x 5 levels, all of the bf16 variant), timed on its first call and
-   again warm; then per-pair and per-window times and peak memory.
+   again warm, the warm call's host stages a window (decode, upload, card
+   wait, colour, encode, file write; scripts/time_torch_pipeline.instrumented);
+   then per-pair and per-window times and peak memory.
    serve  - the serving CLI's service (cli/serve.build_service at its
    defaults: 1024x1920, bf16, fisr_grid 'auto', flow_scale 2, the generator's
    full-width weights) behind infer/daemon.make_server on the loopback, over
@@ -349,6 +360,106 @@ def phase_build():
                 raise AssertionError(f"{entry} spills registers: {spills}")
 
 
+def host_ms(fn, reps):
+    """(fn's result, median host ms of `reps` calls)."""
+    out, ms = None, []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return out, float(np.median(ms))
+
+
+def phase_native(tmp):
+    """The host runtime (fisr_tpu_torch/native): built with g++ here, then
+    every function against its plain version at the main path's frame sizes,
+    colour also over all 2^24 u8 triples; each timed beside its plain version
+    (host clock, median of 3; the plain version once)."""
+    import zlib
+
+    from fisr_tpu_torch import native
+    from fisr_tpu_torch.convert.tensor_bundle import _crc32c
+    from fisr_tpu_torch.data import png_io
+    from fisr_tpu_torch.native import build as nbuild
+    from scripts.time_png_decode import filtered_png
+    from scripts.time_torch_pipeline import host_cores
+
+    t0 = time.perf_counter()
+    lib = nbuild.build()
+    native.available()
+    log(f"[native] g++ built {os.path.basename(lib)} in {time.perf_counter() - t0:.2f} s; zlib "
+        f"{native.zlib_version()} (Python's {zlib.ZLIB_RUNTIME_VERSION}); {host_cores()} host "
+        f"cores; {os.cpu_count()} CPUs")
+    plain = native.plain_versions()
+    rows = []
+
+    def check(name, size, run_native, run_plain, same=np.array_equal):
+        got, native_ms = host_ms(run_native, 3)
+        want, plain_ms = host_ms(run_plain, 1)
+        if not same(got, want):
+            raise AssertionError(f"native {name} at {size} differs from its plain version")
+        rows.append({"name": name, "size": size, "ms": native_ms, "plain_ms": plain_ms})
+        log(f"[native] {name} {size}: {native_ms:.2f} ms, plain version {plain_ms:.2f} ms "
+            f"({plain_ms / native_ms:.1f}x), equal")
+
+    def same_pixels(a, b):
+        return np.array_equal(png_io.decode_png(a), png_io.decode_png(b))
+
+    a = np.arange(1 << 24, dtype=np.uint32)
+    triples = np.stack([(a >> 16) & 255, (a >> 8) & 255, a & 255], -1).astype(np.uint8)
+    for name in ("yuv2rgb_matlab_u8", "rgb2yuv_matlab_u8", "yuv2rgb_ops_u8"):
+        check(name, "all 2^24 triples", lambda: getattr(native, name)(triples),
+              lambda: plain[name](triples))
+    del a, triples
+    for h, w in (WINDOW, (2 * WINDOW[0], 2 * WINDOW[1])):
+        size = f"{h}x{w}"
+        frame = synthetic_frames(1, h, w, seed=h)[0]
+        for name in ("yuv2rgb_matlab_u8", "rgb2yuv_matlab_u8", "yuv2rgb_ops_u8"):
+            check(name, size, lambda: getattr(native, name)(frame), lambda: plain[name](frame))
+        check("encode_png_bytes", size, lambda: native.encode_png_bytes(frame),
+              lambda: png_io.encode_png(frame), same_pixels)
+        same_bytes = native.zlib_version() == zlib.ZLIB_RUNTIME_VERSION
+        check("encode_png_bytes threads=1", size, lambda: native.encode_png_bytes(frame, 1),
+              lambda: png_io.encode_png(frame), np.array_equal if same_bytes else same_pixels)
+        paths = [os.path.join(tmp, f"native_{size}_{k}.png") for k in range(2)]
+        check("encode_png (file)", size, lambda: native.encode_png(frame, paths[0]) or paths[0],
+              lambda: png_io.write_png(frame, paths[1]) or paths[1],
+              lambda a, b: np.array_equal(png_io.read_png(a), png_io.read_png(b)))
+        path = paths[0]
+        for kind, data in (("filter 0", png_io.encode_png(frame)),
+                           ("Paeth", filtered_png(frame, [4] * h))):
+            check(f"decode_png_bytes {kind}", size, lambda: native.decode_png_bytes(data),
+                  lambda: png_io.decode_png(data))
+            with open(path, "wb") as f:
+                f.write(data)
+            check(f"decode_png {kind} (file)", size, lambda: native.decode_png(path),
+                  lambda: png_io.read_png(path))
+        check("crc32c", size, lambda: native.crc32c(frame.tobytes()),
+              lambda: _crc32c(frame.tobytes()))
+        stack = np.stack([frame.astype(np.float32)] * 6)
+        idx = np.array([5, 3, 1, 0, 2, 4])
+        check("gather_rows f32 [6, h, w, 3]", size, lambda: native.gather_rows(stack, idx),
+              lambda: plain["gather_rows"](stack, idx))
+        del stack
+        # the (2, 2) halo tiling of the window input: 29 channels at the
+        # window's size, 3 at the output's
+        src = np.ascontiguousarray(
+            np.repeat(frame.astype(np.float32), 29 if h == WINDOW[0] else 1, axis=2)[..., :29])
+        rects = [(y, x) for y in (0, h // 2 - 32) for x in (0, w // 2 - 32)]
+        check(f"extract_patches [{h}, {w}, {src.shape[2]}]", size,
+              lambda: native.extract_patches(src, rects, h // 2 + 32, w // 2 + 32),
+              lambda: plain["extract_patches"](src, rects, h // 2 + 32, w // 2 + 32))
+        del src
+    paths = []
+    for i, fr in enumerate(synthetic_frames(6, *WINDOW)):
+        paths.append(os.path.join(tmp, f"native_in_{i}.png"))
+        png_io.write_png(fr, paths[-1])
+    check("decode_png_batch 6 frames", f"{WINDOW[0]}x{WINDOW[1]}",
+          lambda: native.decode_png_batch(paths), lambda: plain["decode_png_batch"](paths))
+    log("[native] " + json.dumps({"host_cores": host_cores(), "rows": rows}))
+    return rows
+
+
 def phase_kernel():
     from fisr_tpu_torch.kernels import cost_volume as kernel
     from fisr_tpu_torch.ops.cost_volume import cost_volume as plain
@@ -469,6 +580,8 @@ def require_launches(kernel, what, want=15, variant="mma_bf16"):
 
 
 def phase_full(fisr, pwc, tmp):
+    from scripts.time_torch_pipeline import STAGES, host_cores, instrumented
+
     from fisr_tpu_torch.data.png_io import read_png, write_png
     from fisr_tpu_torch.infer.video import make_fisr_window_fn, make_pair_fn, run_video_pipeline
     from fisr_tpu_torch.kernels import cost_volume as kernel
@@ -484,18 +597,21 @@ def phase_full(fisr, pwc, tmp):
     frames = synthetic_frames(4, h, w)
     for i, fr in enumerate(frames):
         write_png(fr, os.path.join(folder, f"frame_{i:03d}.png"))
-    walls = []
+    walls, stages = [], {}
     for call in ("first", "second"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches(kernel)
-        t0 = time.perf_counter()
-        with torch.inference_mode():
-            outs = run_video_pipeline(fisr, pwc, folder, out_folder=os.path.join(tmp, "fused"),
-                                      policy=BF16, fused=True, flow_upscale=FLOW_UPSCALE,
-                                      device=dev, verbose=False)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+        # the second call's host stages, summed over the threads that ran them
+        with instrumented(stages) if call == "second" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                outs = run_video_pipeline(fisr, pwc, folder,
+                                          out_folder=os.path.join(tmp, "fused"), policy=BF16,
+                                          fused=True, flow_upscale=FLOW_UPSCALE, device=dev,
+                                          verbose=False)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
         launches = kernel.LAUNCHES
         require_launches(kernel, f"main path ({call} call)")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -508,6 +624,9 @@ def phase_full(fisr, pwc, tmp):
     log(f"[full] pipeline: 4 frames -> {len(outs)} outputs of {2 * h}x{2 * w}, "
         f"{launches} cost-volume launches, {walls[0]:.2f} s (first call, PNG I/O "
         f"included), {walls[1]:.2f} s (second call), peak {peak_gib:.2f} GiB")
+    log(f"[full] second call's host stages, s a window (2 windows; summed over threads; "
+        f"{host_cores()} host cores): " + ", ".join(f"{k} {stages.get(k, 0.0) / 2:.4f}"
+                                                   for k in STAGES))
 
     pair_fn = make_pair_fn(pwc.cfg, BF16, FLOW_UPSCALE)
     window_fn = make_fisr_window_fn(BF16)
@@ -1909,6 +2028,8 @@ def main() -> int:
         return out
 
     timed(phase_build)
+    with tempfile.TemporaryDirectory() as tmp:
+        timed(phase_native, tmp)
     max_err, levels, bwd_err_ragged = timed(phase_kernel)
     from fisr_tpu_torch.convert import params
 

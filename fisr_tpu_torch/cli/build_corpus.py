@@ -16,8 +16,9 @@ artifact in the reference's on-disk formats:
   4. +0.5-flow warped middle frames (MATLAB-compatible _warp.mat).
 
 Frames may be RGB (converted to YUV with the MATLAB constants, like the
-reference datasets) or already YUV (--yuv). The .mat files go through
-data/matio, which needs h5py. `main` runs without TF32 and with cuDNN's
+reference datasets, in double as the JAX package's native runtime converts
+them: native.rgb2yuv_matlab_u8) or already YUV (--yuv). The .mat files go
+through data/matio, which needs h5py. `main` runs without TF32 and with cuDNN's
 deterministic algorithms (device.exact_f32, device.cudnn_deterministic), so a
 corpus built twice from the same frames and seed is the same bits.
 
@@ -50,8 +51,7 @@ def build_corpus(frame_paths, out_dir: str, n_samples: int, patch: int = 96, *, 
     from fisr_tpu_torch.cli.prepare import flows_for_sequences, warps_for_sequences
     from fisr_tpu_torch.data import flo as flo_io
     from fisr_tpu_torch.data import matio
-    from fisr_tpu_torch.data.png_io import read_png
-    from fisr_tpu_torch.ops.color import rgb2yuv_matlab_u8
+    from fisr_tpu_torch.native import decode_png_batch, rgb2yuv_matlab_u8
 
     if len(frame_paths) < WINDOW:
         raise ValueError(f"need >= {WINDOW} frames, got {len(frame_paths)}")
@@ -66,10 +66,10 @@ def build_corpus(frame_paths, out_dir: str, n_samples: int, patch: int = 96, *, 
     for i in range(n_samples):
         w_i = int(rng.integers(0, n_windows)) * stride
         if w_i != cache_start:
-            frames = [read_png(p) for p in frame_paths[w_i:w_i + WINDOW]]
+            frames = decode_png_batch(frame_paths[w_i:w_i + WINDOW])
             if not is_yuv:
-                frames = [rgb2yuv_matlab_u8(f) for f in frames]
-            cache = np.stack(frames).astype(np.float32)  # [9, H, W, 3] YUV
+                frames = rgb2yuv_matlab_u8(frames)
+            cache = frames.astype(np.float32)  # [9, H, W, 3] YUV
             cache_start = w_i
         fh, fw = cache.shape[1], cache.shape[2]
         y0 = int(rng.integers(0, fh - 2 * patch + 1)) & ~1  # even for a clean /2

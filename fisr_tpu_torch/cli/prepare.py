@@ -98,7 +98,8 @@ def load_pwc(ckpt_dir: str, device="cuda"):
 def main(argv=None):
     from fisr_tpu_torch.data import flo as flo_io
     from fisr_tpu_torch.data import matio
-    from fisr_tpu_torch.data.png_io import list_pngs, read_png
+    from fisr_tpu_torch.data.png_io import list_pngs
+    from fisr_tpu_torch.native import decode_png_batch
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("cmd", choices=["flow-from-pngs", "flow-from-mat", "warp-from-mat"])
@@ -128,7 +129,7 @@ def main(argv=None):
             paths = list_pngs(args.png_dir)
             k = args.frames_per_scene
             seqs = np.stack([
-                np.stack([read_png(p) for p in paths[i:i + k]])
+                decode_png_batch(paths[i:i + k])
                 for i in range(0, len(paths) - k + 1, k)
             ]).astype(np.float32)
             flo_io.write_flo_5dim(flows_for_sequences(pwc(), seqs, args.ss, device=device),

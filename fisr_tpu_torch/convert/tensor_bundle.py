@@ -30,6 +30,8 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from fisr_tpu_torch.native import crc32c as native_crc32c
+
 __all__ = ["read_bundle", "write_bundle", "list_variables"]
 
 _TABLE_MAGIC = 0xDB4775248B80FB57
@@ -200,7 +202,8 @@ def _serialize_header(num_shards: int) -> bytes:
 
 
 # ---------------------------------------------------------------------------
-# crc32c (Castagnoli): a byte-table loop, run over many lanes at once
+# crc32c (Castagnoli): the host runtime's slice-by-8 (native.crc32c); below,
+# its plain version, a byte-table loop run over many lanes at once
 # ---------------------------------------------------------------------------
 
 def _make_crc32c_table() -> list:
@@ -276,7 +279,7 @@ def _crc32c(data: bytes, crc: int = 0) -> int:
 
 
 def _masked_crc32c(data: bytes) -> int:
-    crc = _crc32c(data)
+    crc = native_crc32c(data)
     return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
 
 

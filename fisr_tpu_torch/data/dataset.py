@@ -8,8 +8,8 @@ last `val_size` samples form the validation split. Per-epoch shuffling uses
 a seeded numpy permutation (FISRnet.py:628).
 
 Under multi-host data parallelism each host takes its own shard-slice of the
-store (shard_index/shard_count). Batch rows are gathered with numpy indexing
-(the JAX package has a native memcpy gather for the same rows).
+store (shard_index/shard_count). Batch rows are gathered on threads by the
+host runtime (native.gather_rows), as the JAX package gathers them.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import numpy as np
 
 from fisr_tpu_torch.data import flo as flo_io
 from fisr_tpu_torch.data import matio
+from fisr_tpu_torch.native import gather_rows
 
 Batch = Dict[str, np.ndarray]
 
@@ -81,12 +82,12 @@ class TrainStore:
         for i in range(lo, hi):
             idx = perm[batch_size * i : batch_size * (i + 1)].astype(np.int64)
             yield {
-                "data": self._split(self.data, False)[idx],
-                "label": self._split(self.label, False)[idx],
-                "flow": self._split(self.flow, False)[idx],
-                "flow_ss2": self._split(self.flow_ss2, False)[idx],
-                "warp": self._split(self.warp, False)[idx],
-                "warp_ss2": self._split(self.warp_ss2, False)[idx],
+                "data": gather_rows(self._split(self.data, False), idx),
+                "label": gather_rows(self._split(self.label, False), idx),
+                "flow": gather_rows(self._split(self.flow, False), idx),
+                "flow_ss2": gather_rows(self._split(self.flow_ss2, False), idx),
+                "warp": gather_rows(self._split(self.warp, False), idx),
+                "warp_ss2": gather_rows(self._split(self.warp_ss2, False), idx),
             }
 
     def val_batches(self, batch_size: int) -> Iterator[Batch]:

@@ -24,7 +24,7 @@ import numpy as np
 
 from fisr_tpu_torch.data import flo as flo_io
 from fisr_tpu_torch.data.augment import AugmentOptions, augment_pair
-from fisr_tpu_torch.data.png_io import read_png
+from fisr_tpu_torch.native import decode_png
 
 __all__ = ["FlowDataset"]
 
@@ -109,8 +109,8 @@ class FlowDataset:
             kw["split_sizes"] = (len(trn_ids), len(val_ids))
         pairs, flows = [], []
         for i in ids:
-            img1 = read_png(os.path.join(folder, f"{i}_img1.png"))
-            img2 = read_png(os.path.join(folder, f"{i}_img2.png"))
+            img1 = decode_png(os.path.join(folder, f"{i}_img1.png"))
+            img2 = decode_png(os.path.join(folder, f"{i}_img2.png"))
             pairs.append(np.stack([img1, img2]))
             flows.append(flo_io.read_flo(os.path.join(folder, f"{i}_flow.flo")))
         return cls(np.stack(pairs), np.stack(flows).astype(np.float32),

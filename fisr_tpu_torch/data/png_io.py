@@ -1,4 +1,6 @@
-"""PNG frame I/O with the standard library (zlib + struct) and numpy.
+"""PNG frame I/O with the standard library (zlib + struct) and numpy: the
+plain version of the host runtime's codec (fisr_tpu_torch/native), which the
+pipeline, the server and the test phase use and which is held against this.
 
 The FISR datasets keep YUV frames in ordinary 3-channel PNGs (the channels
 are Y, U, V) and the video phase writes its predictions both as RGB and as

@@ -21,10 +21,11 @@ default (the pipeline's own space, as the reference's inputs are); with
 `?colorspace=rgb` they are converted at the edge. A window's outputs are
 [interp1, SR, interp2] at twice the resolution.
 
-PNGs are written and read with the port's own codec (data/png_io; the card's
-machine has no PIL): the same pixels as the JAX package's PIL frames, other
-bytes. One `FISRService` serves one device and serializes its device calls
-behind a lock; `MultiChipService` holds one a device in one process, behind
+PNGs are written and read with the port's own codec (the host runtime,
+fisr_tpu_torch/native, in data/png_io's format; the card's machine has no
+PIL): the same pixels as the JAX package's PIL frames, other bytes. One
+`FISRService` serves one device and serializes its device calls behind a
+lock; `MultiChipService` holds one a device in one process, behind
 the same HTTP layer.
 
 Hardening: `make_server(auth_token=...)` requires `Authorization: Bearer` on
@@ -49,12 +50,12 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from fisr_tpu_torch.data.png_io import decode_png, encode_png
 from fisr_tpu_torch.device import f32_scope, resolve_device
 from fisr_tpu_torch.infer.autotune import dtype_name
 from fisr_tpu_torch.infer.video import make_fisr_window_fn, make_fused_video_step, make_pair_fn
 from fisr_tpu_torch.models import fisrnet, pwcnet
-from fisr_tpu_torch.ops.color import rgb2yuv_matlab, yuv2rgb_matlab_u8
+from fisr_tpu_torch.native import decode_png_bytes, encode_png_bytes, yuv2rgb_ops_u8
+from fisr_tpu_torch.ops.color import rgb2yuv_matlab
 from fisr_tpu_torch.ops.conv import F32, Policy
 from fisr_tpu_torch.utils.profiling import assert_fits_hbm
 
@@ -71,15 +72,16 @@ def pack_frames(frames: List[np.ndarray]) -> bytes:
     """[H, W, 3] u8 arrays -> framed PNG payload (u32 count, (u32 len, png)*)."""
     out = [struct.pack("<I", len(frames))]
     for f in frames:
-        png = encode_png(f)
+        png = encode_png_bytes(f)
         out.append(struct.pack("<I", len(png)))
         out.append(png)
     return b"".join(out)
 
 
 def unpack_frames(payload: bytes) -> List[np.ndarray]:
-    """Framed PNG payload -> [H, W, 3] u8 RGB arrays (data/png_io.decode_png:
-    8-bit greyscale, RGB, RGBA and palette PNGs); ValueError when malformed."""
+    """Framed PNG payload -> [H, W, 3] u8 RGB arrays (native.decode_png_bytes,
+    data/png_io.decode_png's formats: 8-bit greyscale, RGB, RGBA and palette
+    PNGs); ValueError when malformed."""
     if len(payload) < 4:
         raise ValueError("truncated frame payload")
     (count,) = struct.unpack_from("<I", payload, 0)
@@ -91,7 +93,7 @@ def unpack_frames(payload: bytes) -> List[np.ndarray]:
         off += 4
         if off + n > len(payload):
             raise ValueError("truncated frame payload")
-        frames.append(decode_png(payload[off:off + n]))
+        frames.append(decode_png_bytes(payload[off:off + n]))
         off += n
     return frames
 
@@ -356,7 +358,7 @@ def _yuv_from(frames: List[np.ndarray], colorspace: str) -> List[np.ndarray]:
 def _yuv_to(frames: List[np.ndarray], colorspace: str) -> List[np.ndarray]:
     if colorspace == "yuv":
         return frames
-    return [yuv2rgb_matlab_u8(f) for f in frames]
+    return [yuv2rgb_ops_u8(f) for f in frames]
 
 
 def make_server(service, host: str = "127.0.0.1", port: int = 8417,

@@ -9,7 +9,9 @@ every frame is scored with PSNR and SSIM in YUV.
 
 Accounting (FISRnet.py:913-920): fr1 of every window and fr3 of the last are
 VFI-SR frames; fr2 is the SR frame. Predictions are saved as RGB PNGs through
-the MATLAB YUV->RGB with uint8 truncation (FISRnet.py:901-910).
+the MATLAB YUV->RGB with uint8 truncation (FISRnet.py:901-910), with the JAX
+package's native constants (native.yuv2rgb_matlab_u8), so the saved frames
+are its bits. PNGs are read and written by the host runtime (native).
 
 All three windows of a scene ride the batch axis of one tiled call.
 `evaluate_test_set` reads the .flo and .mat files and hands their arrays to
@@ -28,9 +30,9 @@ import torch
 
 from fisr_tpu_torch.data import flo as flo_io
 from fisr_tpu_torch.data import matio
-from fisr_tpu_torch.data.png_io import list_pngs, read_png, write_png
+from fisr_tpu_torch.data.png_io import list_pngs
+from fisr_tpu_torch.native import decode_png, encode_png, yuv2rgb_matlab_u8
 from fisr_tpu_torch.ops import metrics as M
-from fisr_tpu_torch.ops.color import yuv2rgb_matlab_u8
 
 N_IN_SEQ = 3
 N_TEST_IN_SEQ = 5
@@ -113,7 +115,7 @@ def evaluate_scenes(runner, test_data_dir: str, test_label_dir: str, flow: np.nd
                             max_val=255.0))
 
     for scene_i in range(n_scenes):
-        scene_frames = [read_png(data_paths[scene_i * N_TEST_IN_SEQ + s])[:h, :w]
+        scene_frames = [decode_png(data_paths[scene_i * N_TEST_IN_SEQ + s])[:h, :w]
                         for s in range(N_TEST_IN_SEQ)]
         windows = []
         for sample_i in range(n_windows):
@@ -132,7 +134,7 @@ def evaluate_scenes(runner, test_data_dir: str, test_label_dir: str, flow: np.nd
         for sample_i in range(n_windows):
             pred = preds[sample_i]
             first = scene_i * n_label_seq + sample_i * 2
-            label = np.concatenate([read_png(label_paths[first + s]) for s in range(N_GT_SEQ)],
+            label = np.concatenate([decode_png(label_paths[first + s]) for s in range(N_GT_SEQ)],
                                    axis=2)[:h * sf, :w * sf]
             label = np.clip(label.astype(np.float64) / 255.0, 0, 1)
 
@@ -156,8 +158,8 @@ def evaluate_scenes(runner, test_data_dir: str, test_label_dir: str, flow: np.nd
                 pred_u8 = np.uint8(pred * 255)
                 for s in range(N_GT_SEQ):
                     name = os.path.basename(label_paths[first + s])[3:]
-                    write_png(yuv2rgb_matlab_u8(pred_u8[:, :, 3 * s:3 * (s + 1)]),
-                              os.path.join(out_dir, f"pred_{name}"))
+                    encode_png(yuv2rgb_matlab_u8(pred_u8[:, :, 3 * s:3 * (s + 1)]),
+                               os.path.join(out_dir, f"pred_{name}"))
 
             if verbose:
                 print(f" <Test> scene {scene_i}-{sample_i}: PSNR fr1 (VFI-SR) "

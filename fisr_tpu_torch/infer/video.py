@@ -32,13 +32,14 @@ import torch.nn.functional as F
 
 from fisr_tpu_torch.data import flo as flo_io
 from fisr_tpu_torch.data import matio
-from fisr_tpu_torch.data.png_io import list_pngs, read_png, write_png
+from fisr_tpu_torch.data.png_io import list_pngs
 from fisr_tpu_torch.device import resolve_device
 from fisr_tpu_torch.infer.autotune import TuneCache, dtype_name
 from fisr_tpu_torch.infer.device import best_grid, padded_grid, tiled_apply_padded
 from fisr_tpu_torch.infer.tiled import TiledRunner
 from fisr_tpu_torch.models import fisrnet, pwcnet
-from fisr_tpu_torch.ops.color import rgb2yuv_matlab, yuv2rgb_matlab, yuv2rgb_matlab_u8
+from fisr_tpu_torch.native import decode_png_batch, encode_png_bytes, yuv2rgb_ops_u8
+from fisr_tpu_torch.ops.color import rgb2yuv_matlab, yuv2rgb_matlab
 from fisr_tpu_torch.ops.conv import F32, Policy
 from fisr_tpu_torch.ops.resize import resize_tf1, upsample2x_bilinear
 from fisr_tpu_torch.ops.warp import dense_image_warp
@@ -263,18 +264,19 @@ def run_video_pipeline(fisr_model: fisrnet.FISRnet, pwc_model: pwcnet.PWCNet,
     out_folder = out_folder or os.path.join(frame_folder, "FISR_frames")
     os.makedirs(out_folder, exist_ok=True)
 
-    frames = np.stack([read_png(p) for p in paths])  # YUV u8 [n, H, W, 3]
+    frames = decode_png_batch(paths)  # YUV u8 [n, H, W, 3], decoded on threads
     digits = math.ceil(math.log10(2 * (n - 1)))
     out_paths, writes = [], []
 
     with ThreadPoolExecutor(max_workers=4) as pool:
         def emit(fr, pred_u8):
             """Queue the PNG writes of window `fr`: RGB and YUV for its output
-            frames, numbered at twice the frame rate. A window's third frame
-            has the number of the next window's first, which replaces it (as
-            in the reference's loop, where the later write wins), so only the
-            last window writes its third: every file is written once, and
-            no two writer threads meet on one path."""
+            frames, numbered at twice the frame rate, each job converting
+            (RGB), encoding and writing on a worker thread. A window's third
+            frame has the number of the next window's first, which replaces
+            it (as in the reference's loop, where the later write wins), so
+            only the last window writes its third: every file is written
+            once, and no two writer threads meet on one path."""
             for s in range(3):
                 idx = str(fr * 2 + s).zfill(digits)
                 yuv = pred_u8[:, :, 3 * s:3 * s + 3]
@@ -283,8 +285,8 @@ def run_video_pipeline(fisr_model: fisrnet.FISRnet, pwc_model: pwcnet.PWCNet,
                 if s == 2 and fr != n - 3:
                     continue
                 p_yuv = os.path.join(out_folder, f"pred_YUV_{idx}.png")
-                writes.append(pool.submit(write_png, yuv2rgb_matlab_u8(yuv), p_rgb))
-                writes.append(pool.submit(write_png, yuv, p_yuv))
+                writes.append(pool.submit(_write_frame, yuv, p_rgb, True))
+                writes.append(pool.submit(_write_frame, yuv, p_yuv, False))
 
         if fused:
             _fused_windows(fisr_model, pwc_model, frames, emit, policy, flow_upscale,
@@ -295,6 +297,18 @@ def run_video_pipeline(fisr_model: fisrnet.FISRnet, pwc_model: pwcnet.PWCNet,
         for fut in writes:
             fut.result()
     return out_paths
+
+
+def _write_frame(yuv: np.ndarray, path: str, rgb: bool) -> None:
+    """One output PNG of a YUV u8 frame, as RGB (ops/color's constants) or as
+    it is: the host runtime's colour and threaded encoder, then the file."""
+    png = encode_png_bytes(yuv2rgb_ops_u8(yuv) if rgb else yuv)
+    _write_file(png, path)
+
+
+def _write_file(data: bytes, path: str) -> None:
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def _upload(frames: np.ndarray, i: int, h: int, w: int, dev) -> torch.Tensor:

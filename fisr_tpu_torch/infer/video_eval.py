@@ -30,8 +30,8 @@ import re
 import numpy as np
 import torch
 
-from fisr_tpu_torch.data.png_io import read_png
 from fisr_tpu_torch.device import resolve_device
+from fisr_tpu_torch.native import decode_png
 from fisr_tpu_torch.ops import metrics as M
 
 __all__ = ["VideoEvalResult", "evaluate_video_folder"]
@@ -76,8 +76,8 @@ def evaluate_video_folder(pred_folder: str, gt_folder: str,
     psnr = {0: [], 1: []}  # parity of the output index: 1 = SR, 0 = VFI-SR
     ssim = {0: [], 1: []}
     for k in common:
-        p = read_png(preds[k]).astype(np.float64) / 255.0
-        g = read_png(gts[k]).astype(np.float64) / 255.0
+        p = decode_png(preds[k]).astype(np.float64) / 255.0
+        g = decode_png(gts[k]).astype(np.float64) / 255.0
         if p.shape != g.shape:
             raise ValueError(f"frame {k}: pred {p.shape} != gt {g.shape}")
         psnr[k % 2].append(M.psnr_np(g, p, 1.0))

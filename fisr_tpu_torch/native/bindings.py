@@ -1,0 +1,368 @@
+"""ctypes bindings of the port's host runtime (csrc/native.cc), each beside
+its plain version.
+
+The names are the JAX package's (fisr_tpu/native): `decode_png`,
+`decode_png_batch`, `encode_png` (to a path), `gather_rows`,
+`yuv2rgb_matlab_u8`, `rgb2yuv_matlab_u8`, `extract_patches`, `crc32c`,
+`available`; `decode_png_bytes` and `encode_png_bytes` are the server's
+buffer variants, and `yuv2rgb_ops_u8` is the colour conversion with the
+constants of ops/color.
+
+Two sets of colour constants:
+* `yuv2rgb_matlab_u8` / `rgb2yuv_matlab_u8` use the JAX package's native
+  constants (MATLAB's matrix times 255 in double, the offset folded in):
+  the bits of fisr_tpu.native, which the JAX test phase and corpus builder
+  use;
+* `yuv2rgb_ops_u8` uses ops/color's f32 constants widened to double: the
+  bits of ops/color.yuv2rgb_matlab_u8, which the JAX video pipeline uses.
+
+Each function checks shapes, bounds and dtypes here before it passes a
+pointer, raises what its plain version raises for bad input, and never falls
+back to the plain version: a failed build raises. ctypes releases the GIL for
+every call. `plain_versions()` maps each name to its plain version (numpy,
+the stdlib codec of data/png_io, the crc loop of convert/tensor_bundle); the
+tests and chip_smoke.py hold every binding against it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import struct
+from typing import Optional, Sequence
+
+import numpy as np
+
+from fisr_tpu_torch.native import build
+
+__all__ = ["available", "decode_png", "decode_png_bytes", "decode_png_batch", "encode_png",
+           "encode_png_bytes", "gather_rows", "extract_patches", "yuv2rgb_matlab_u8",
+           "rgb2yuv_matlab_u8", "yuv2rgb_ops_u8", "crc32c", "zlib_version", "plain_versions"]
+
+_u8p = ctypes.POINTER(ctypes.c_uint8)
+_i64p = ctypes.POINTER(ctypes.c_int64)
+_i32p = ctypes.POINTER(ctypes.c_int32)
+_f64p = ctypes.POINTER(ctypes.c_double)
+_i64, _int = ctypes.c_int64, ctypes.c_int
+_SIGNATURES = {
+    "fisr_zlib_version": ([], ctypes.c_char_p),
+    "fisr_crc32c": ([ctypes.c_void_p, _i64, ctypes.c_uint32], ctypes.c_uint32),
+    "fisr_gather_rows": ([ctypes.c_void_p, _i64, _i64p, _i64, ctypes.c_void_p], None),
+    "fisr_extract_patches": ([ctypes.c_void_p, _i64, _i64, _i64p, _i64p, _i64, _i64, _i64,
+                              ctypes.c_void_p], None),
+    "fisr_color_u8": ([_u8p, _u8p, _i64, _f64p, _f64p], None),
+    "fisr_png_decode": ([ctypes.c_void_p, _i64, _u8p, _i64, _i64p, ctypes.c_char_p], _int),
+    "fisr_png_decode_batch": ([ctypes.c_char_p, _i64, _i64, _u8p, _i64, _i64, _i32p, _i64p,
+                               ctypes.c_char_p], _i64),
+    "fisr_png_encode": ([_u8p, _i64, _i64, _int, _u8p, _i64, _i64p], _i64),
+    "fisr_png_write": ([ctypes.c_char_p, _u8p, _i64, _i64], _int),
+}
+_INFO, _MSG = 8, 256  # int64s of a decode's info, bytes of its message
+_MAX_PIXELS = 178_956_970  # data/png_io._MAX_PIXELS
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load()
+    if not getattr(lib, "_fisr_typed", False):
+        for name, (args, res) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, res
+        lib._fisr_typed = True
+    return lib
+
+
+def available() -> bool:
+    """True when the library builds and loads here (a failed build raises in
+    every other function)."""
+    try:
+        _lib()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
+def zlib_version() -> str:
+    """The version of the zlib the library linked, as zlibVersion() says."""
+    return _lib().fisr_zlib_version().decode()
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(_u8p)
+
+
+# ---- crc32c -----------------------------------------------------------------
+
+def crc32c(data, crc: int = 0) -> int:
+    """CRC-32C (Castagnoli) of the bytes-like `data`, continuing `crc`."""
+    buf = np.frombuffer(data, np.uint8)
+    return int(_lib().fisr_crc32c(buf.ctypes.data, buf.size, crc & 0xFFFFFFFF))
+
+
+# ---- gather and patches -----------------------------------------------------
+
+def gather_rows(src: np.ndarray, idx) -> np.ndarray:
+    """src[idx] for integer indices along axis 0 (negative ones count from the
+    end, as numpy's); rows copied on threads."""
+    src = np.ascontiguousarray(src)
+    idx = np.asarray(idx)
+    if src.ndim == 0 or not np.issubdtype(idx.dtype, np.integer):
+        raise IndexError("gather_rows takes integer indices into axis 0 of an array")
+    n = src.shape[0]
+    flat = idx.astype(np.int64).reshape(-1)
+    bad = flat[(flat < -n) | (flat >= n)]
+    if bad.size:
+        raise IndexError(f"index {int(bad[0])} is out of bounds for axis 0 with size {n}")
+    flat = np.where(flat < 0, flat + n, flat)
+    out = np.empty(idx.shape + src.shape[1:], src.dtype)
+    row_bytes = src.itemsize * int(np.prod(src.shape[1:], dtype=np.int64))
+    _lib().fisr_gather_rows(src.ctypes.data, row_bytes, flat.ctypes.data_as(_i64p), flat.size,
+                            out.ctypes.data)
+    return out
+
+
+def extract_patches(src: np.ndarray, rects: Sequence[tuple], ph: int, pw: int) -> np.ndarray:
+    """src [H, W, ...]; rects [(y0, x0), ...] -> [n, ph, pw, ...], each patch
+    inside the frame."""
+    src = np.ascontiguousarray(src)
+    if not len(rects):
+        raise ValueError("need at least one array to stack")
+    y0s = np.asarray([r[0] for r in rects], np.int64)
+    x0s = np.asarray([r[1] for r in rects], np.int64)
+    hh, ww = src.shape[:2]
+    if ph < 0 or pw < 0 or (y0s < 0).any() or (x0s < 0).any() or \
+            (y0s + ph > hh).any() or (x0s + pw > ww).any():
+        raise ValueError(f"a {ph}x{pw} patch at {list(zip(y0s.tolist(), x0s.tolist()))} "
+                         f"leaves the {hh}x{ww} frame")
+    out = np.empty((len(rects), ph, pw) + src.shape[2:], src.dtype)
+    px_bytes = src.itemsize * int(np.prod(src.shape[2:], dtype=np.int64))
+    _lib().fisr_extract_patches(src.ctypes.data, ww, px_bytes, y0s.ctypes.data_as(_i64p),
+                                x0s.ctypes.data_as(_i64p), len(rects), ph, pw,
+                                out.ctypes.data)
+    return out
+
+
+# ---- colour -----------------------------------------------------------------
+
+# The JAX package's native constants (fisr_tpu/native/loader.cc): MATLAB's
+# ycbcr2rgb matrix times 255 and the rgb2ycbcr matrix over 255, in double;
+# the YUV -> RGB offset is the matrix times (16, 128, 128), summed in order.
+_TINV = ((0.00456621, 0.0, 0.00625893),
+         (0.00456621, -0.00153632, -0.00318811),
+         (0.00456621, 0.00791071, 0.0))
+_T_FWD = ((65.481, 128.553, 24.966),
+          (-37.797, -74.203, 112.0),
+          (112.0, -93.786, -18.214))
+_OFFSET = (16.0, 128.0, 128.0)
+_M_YUV2RGB_NATIVE = np.array([[c * 255 for c in r] for r in _TINV], np.float64)
+_B_YUV2RGB_NATIVE = -np.array([r[0] * _OFFSET[0] + r[1] * _OFFSET[1] + r[2] * _OFFSET[2]
+                               for r in _M_YUV2RGB_NATIVE.tolist()], np.float64)
+_M_RGB2YUV_NATIVE = np.array([[c / 255 for c in r] for r in _T_FWD], np.float64)
+_B_RGB2YUV_NATIVE = np.array(_OFFSET, np.float64)
+
+
+def _ops_constants():
+    from fisr_tpu_torch.ops import color
+
+    return (color._M_YUV2RGB.astype(np.float64),
+            -color._B_YUV2RGB.astype(np.float64))
+
+
+def _color(x: np.ndarray, m: np.ndarray, b: np.ndarray) -> np.ndarray:
+    x = np.ascontiguousarray(x, np.uint8)
+    if x.ndim == 0 or x.shape[-1] != 3:
+        raise ValueError(f"colour conversion takes [..., 3] arrays, got shape {x.shape}")
+    out = np.empty_like(x)
+    m = np.ascontiguousarray(m, np.float64)
+    b = np.ascontiguousarray(b, np.float64)
+    _lib().fisr_color_u8(_ptr(x), _ptr(out), x.size // 3, m.ctypes.data_as(_f64p),
+                         b.ctypes.data_as(_f64p))
+    return out
+
+
+def yuv2rgb_matlab_u8(yuv: np.ndarray) -> np.ndarray:
+    """u8 YUV -> u8 RGB with the JAX package's native constants (its test
+    phase's saved frames): double sums, clip, truncation."""
+    return _color(yuv, _M_YUV2RGB_NATIVE, _B_YUV2RGB_NATIVE)
+
+
+def rgb2yuv_matlab_u8(rgb: np.ndarray) -> np.ndarray:
+    """u8 RGB -> u8 YUV with the JAX package's native constants (its corpus
+    builder's conversion): double sums, clip, truncation."""
+    return _color(rgb, _M_RGB2YUV_NATIVE, _B_RGB2YUV_NATIVE)
+
+
+def yuv2rgb_ops_u8(yuv: np.ndarray) -> np.ndarray:
+    """u8 YUV -> u8 RGB with ops/color's constants: the bits of
+    ops.color.yuv2rgb_matlab_u8 (the video pipeline's and the server's)."""
+    return _color(yuv, *_ops_constants())
+
+
+def _plain_color(x: np.ndarray, m: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """numpy version of fisr_color_u8: double, summed in the library's order."""
+    x = np.asarray(x, np.uint8).astype(np.float64)
+    out = [x[..., 0] * m[r, 0] + x[..., 1] * m[r, 1] + x[..., 2] * m[r, 2] + b[r]
+           for r in range(3)]
+    return np.clip(np.stack(out, -1), 0, 255).astype(np.uint8)
+
+
+# ---- PNG --------------------------------------------------------------------
+
+def _decode_error(code: int, info: np.ndarray, msg: bytes, path=None) -> Exception:
+    """The exception data/png_io.read_png (path) or decode_png raises."""
+    w, h, depth, ctype, interlace, got, want, extra = (int(v) for v in info)
+    if code == 14:
+        return OSError(extra, os.strerror(extra), path)
+    if code == 13:
+        return MemoryError("no memory to decode the PNG")
+    if code == 2:
+        return struct.error("unpack requires a buffer of 13 bytes")
+    text = {
+        1: "not a PNG file",
+        3: f"cannot reshape array of size {extra} into shape (3)",
+        4: "PNG has no IHDR chunk",
+        5: "only 8-bit non-interlaced greyscale, RGB, RGBA or palette PNGs are supported "
+           f"(depth {depth}, colour type {ctype}, interlace {interlace})",
+        6: f"PNG of {w}x{h} pixels exceeds the {_MAX_PIXELS}-pixel limit",
+        7: "corrupt PNG image data: " + msg.split(b"\0", 1)[0].decode(errors="replace"),
+        8: f"PNG image data holds {'more than ' if got > want else ''}{min(got, want)} bytes, "
+           f"its {w}x{h} header says {want}",
+        9: f"bad PNG filter type {extra}",
+        10: "palette PNG has no PLTE chunk",
+        12: "all input arrays must have the same shape",
+    }.get(code, f"PNG decode failed with status {code}")
+    return ValueError(f"{path}: {text}" if path is not None and code != 12 else text)
+
+
+def _header_size(buf: np.ndarray):
+    """(h, w) of a PNG whose first chunk is its IHDR, else (0, 0)."""
+    if buf.size >= 24 and buf[12:16].tobytes() == b"IHDR":
+        w, h = struct.unpack(">II", buf[16:24].tobytes())
+        if w * h <= _MAX_PIXELS:
+            return h, w
+    return 0, 0
+
+
+def decode_png_bytes(data) -> np.ndarray:
+    """The bytes of a PNG file as u8 [H, W, 3] RGB: data/png_io.decode_png's
+    formats, results and errors."""
+    return _decode(data, None)
+
+
+def _decode(data, path) -> np.ndarray:
+    lib = _lib()
+    buf = np.frombuffer(data, np.uint8)
+    info = np.zeros(_INFO, np.int64)
+    msg = ctypes.create_string_buffer(_MSG)
+    h, w = _header_size(buf)
+    for _ in range(2):  # again at the size the decoder found, when it was not the first chunk's
+        out = np.empty((h, w, 3), np.uint8)
+        code = lib.fisr_png_decode(buf.ctypes.data, buf.size, _ptr(out), out.size,
+                                   info.ctypes.data_as(_i64p), msg)
+        if code != 11:
+            break
+        w, h = int(info[0]), int(info[1])
+    if code:
+        raise _decode_error(code, info, msg.raw, path)
+    return out.reshape(int(info[1]), int(info[0]), 3)
+
+
+def decode_png(path) -> np.ndarray:
+    """Read a PNG file as u8 [H, W, 3] RGB (data/png_io.read_png)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    return _decode(data, path)
+
+
+def decode_png_batch(paths: Sequence) -> np.ndarray:
+    """PNG files of one size as u8 [n, h, w, 3], decoded on threads: what
+    np.stack of their read_png gives, and the error the first bad file gives
+    (h, w are the first file's)."""
+    if not len(paths):
+        raise ValueError("need at least one array to stack")
+    with open(paths[0], "rb") as f:
+        head = np.frombuffer(f.read(33), np.uint8)
+    h, w = _header_size(head)
+    if (h, w) == (0, 0):  # its IHDR is not its first chunk, or it does not decode
+        h, w = decode_png(paths[0]).shape[:2]
+    enc = [os.fsencode(p) for p in paths]
+    stride = max(len(p) for p in enc) + 1
+    names = b"".join(p.ljust(stride, b"\0") for p in enc)
+    n = len(paths)
+    out = np.empty((n, h, w, 3), np.uint8)
+    codes = np.zeros(n, np.int32)
+    info = np.zeros((n, _INFO), np.int64)
+    msgs = ctypes.create_string_buffer(n * _MSG)
+    failed = _lib().fisr_png_decode_batch(names, stride, n, _ptr(out), h, w,
+                                          codes.ctypes.data_as(_i32p),
+                                          info.ctypes.data_as(_i64p), msgs)
+    if failed:
+        for i in range(n):  # the first file that does not decode, then a size mismatch
+            if codes[i] not in (0, 12):
+                raise _decode_error(int(codes[i]), info[i], msgs.raw[i * _MSG:(i + 1) * _MSG],
+                                    paths[i])
+        raise _decode_error(12, info[0], b"")
+    return out
+
+
+def _frame(img: np.ndarray) -> np.ndarray:
+    a = np.ascontiguousarray(img, np.uint8)
+    if a.ndim != 3 or a.shape[2] != 3:
+        raise ValueError(f"a PNG frame is [H, W, 3] uint8, got shape {a.shape}")
+    return a
+
+
+def encode_png_bytes(img: np.ndarray, threads: Optional[int] = None) -> bytes:
+    """u8 [H, W, 3] as the bytes of an 8-bit RGB PNG in data/png_io's format
+    (filter 0, zlib level 1), deflated in row strips on `threads` threads
+    (default: the host's cores); with threads=1 png_io.encode_png's bytes when
+    both link the same zlib, else the same pixels."""
+    a = _frame(img)
+    h, w, _ = a.shape
+    need = ctypes.c_int64(0)
+    cap = h * (1 + 3 * w) + (h * (1 + 3 * w) >> 8) + 1024  # stored blocks' worst case
+    for _ in range(2):
+        out = np.empty(cap, np.uint8)
+        n = _lib().fisr_png_encode(_ptr(a), h, w, threads or 0, _ptr(out), cap,
+                                   ctypes.byref(need))
+        if n != -1:
+            break
+        cap = need.value
+    if n < 0:
+        raise MemoryError("zlib failed to compress the PNG frame")
+    return out[:n].tobytes()
+
+
+def encode_png(img: np.ndarray, path) -> None:
+    """Write u8 [H, W, 3] to `path` as an 8-bit RGB PNG (data/png_io.write_png)."""
+    a = _frame(img)
+    rc = _lib().fisr_png_write(os.fsencode(path), _ptr(a), a.shape[0], a.shape[1])
+    if rc == -2:
+        raise MemoryError("zlib failed to compress the PNG frame")
+    if rc:
+        raise OSError(rc, os.strerror(rc), str(path))
+
+
+# ---- plain versions ---------------------------------------------------------
+
+def plain_versions() -> dict:
+    """{binding name: its plain version}, each called as the binding is."""
+    from fisr_tpu_torch.convert.tensor_bundle import _crc32c
+    from fisr_tpu_torch.data import png_io
+    from fisr_tpu_torch.ops import color
+
+    return {
+        "crc32c": _crc32c,
+        "gather_rows": lambda src, idx: np.asarray(src)[idx],
+        "extract_patches": lambda src, rects, ph, pw: np.stack(
+            [np.asarray(src)[y:y + ph, x:x + pw] for y, x in rects]),
+        "yuv2rgb_matlab_u8": lambda yuv: _plain_color(yuv, _M_YUV2RGB_NATIVE,
+                                                      _B_YUV2RGB_NATIVE),
+        "rgb2yuv_matlab_u8": lambda rgb: _plain_color(rgb, _M_RGB2YUV_NATIVE,
+                                                      _B_RGB2YUV_NATIVE),
+        "yuv2rgb_ops_u8": color.yuv2rgb_matlab_u8,
+        "decode_png": png_io.read_png,
+        "decode_png_bytes": png_io.decode_png,
+        "decode_png_batch": lambda paths: np.stack([png_io.read_png(p) for p in paths]),
+        "encode_png": png_io.write_png,
+        "encode_png_bytes": png_io.encode_png,
+    }

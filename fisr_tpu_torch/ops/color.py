@@ -86,7 +86,8 @@ def rgb2yuv_matlab(rgb: torch.Tensor, clip: bool = True) -> torch.Tensor:
 
 def yuv2rgb_matlab_u8(yuv_u8: np.ndarray) -> np.ndarray:
     """Host-side uint8 YUV -> uint8 RGB exactly as the reference save path:
-    f64 transform, clip, then truncation by `.astype('uint8')`."""
+    f64 transform, clip, then truncation by `.astype('uint8')`. The plain
+    version of native.yuv2rgb_ops_u8, which the pipeline and server run."""
     rgb = (yuv_u8.astype(np.float64) @ _M_YUV2RGB.T.astype(np.float64)) - _B_YUV2RGB.astype(np.float64)
     return np.clip(rgb, 0, 255).astype(np.uint8)
 

@@ -24,6 +24,8 @@ import time
 
 import numpy as np
 
+from fisr_tpu_torch.native import crc32c as native_crc32c
+
 __all__ = ["TBLogger", "crc32c"]
 
 _CRC_TABLE = None
@@ -44,6 +46,8 @@ def _crc_table():
 
 
 def crc32c(data: bytes) -> int:
+    """CRC-32C by the byte table: the plain version of native.crc32c, which
+    the writer uses."""
     table = _crc_table()
     crc = 0xFFFFFFFF
     for b in data:
@@ -52,7 +56,7 @@ def crc32c(data: bytes) -> int:
 
 
 def _masked_crc(data: bytes) -> int:
-    crc = crc32c(data)
+    crc = native_crc32c(data)
     return ((crc >> 15 | crc << 17) + 0xA282EAD8) & 0xFFFFFFFF
 
 

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Host time of fisr_tpu_torch's PNG decoder by row filter type.
+"""Host time of fisr_tpu_torch's PNG decoders by row filter type.
 
     python3 scripts/time_png_decode.py [--root DIR] [--height 1024] [--width 1920] [--reps 1]
 
 Builds one random 8-bit RGB frame and four PNGs of it whose rows are all
 Paeth-, all Average-, all None-filtered, or cycle through the five filter
 types (the filtering is done here in numpy; zlib level 1), reads each with
-`fisr_tpu_torch.data.png_io.read_png` from `--root` (this repository by
-default, or another commit's tree unpacked inside it, e.g. `git archive` into
-`build/`), checks the pixels byte for byte and prints the seconds of each
-read with the CPU's name. The last line is one JSON object. CPU only.
+the plain decoder `fisr_tpu_torch.data.png_io.read_png` and, where the tree
+has it, the host runtime's `fisr_tpu_torch.native.decode_png` (C++, built
+with g++ at first use), from `--root` (this repository by default, or
+another commit's tree unpacked inside it, e.g. `git archive` into `build/`),
+checks the pixels byte for byte and prints the seconds of each read with the
+CPU's name and cores. The last line is one JSON object. CPU only.
 """
 
 from __future__ import annotations
@@ -76,6 +78,14 @@ def main() -> int:
     sys.path.insert(0, os.path.abspath(args.root))
     from fisr_tpu_torch.data.png_io import read_png
 
+    decoders = {"plain": read_png}
+    try:
+        from fisr_tpu_torch import native
+    except ImportError:  # a tree before the host runtime
+        native = None
+    if native is not None:
+        native.available()  # build before the first timed read
+        decoders["native"] = native.decode_png
     img = np.random.default_rng(0).integers(0, 256, (args.height, args.width, 3), np.uint8)
     sec = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -84,14 +94,16 @@ def main() -> int:
             path = os.path.join(tmp, f"{kind}.png")
             with open(path, "wb") as f:
                 f.write(filtered_png(img, rows))
-            sec[kind] = []
-            for _ in range(args.reps):
-                t0 = time.perf_counter()
-                got = read_png(path)
-                sec[kind].append(time.perf_counter() - t0)
-                if not np.array_equal(got, img):
-                    raise AssertionError(f"{kind}: decoded pixels differ")
-            print(f"{kind}: " + ", ".join(f"{s:.3f}" for s in sec[kind]) + " s", flush=True)
+            for name, decode in decoders.items():
+                key = kind if name == "plain" else f"{kind}_{name}"
+                sec[key] = []
+                for _ in range(args.reps):
+                    t0 = time.perf_counter()
+                    got = decode(path)
+                    sec[key].append(time.perf_counter() - t0)
+                    if not np.array_equal(got, img):
+                        raise AssertionError(f"{key}: decoded pixels differ")
+                print(f"{key}: " + ", ".join(f"{s:.4f}" for s in sec[key]) + " s", flush=True)
     print(json.dumps({"cpu": cpu_name(), "cores": os.cpu_count(), "root": args.root,
                       "frame": [args.height, args.width], "sec": sec}))
     return 0

@@ -130,6 +130,29 @@ def test_frame_protocol_crosses_the_jax_codec():
         np.testing.assert_array_equal(a, b)
 
 
+def test_protocol_through_the_host_runtime_equals_its_plain_versions(monkeypatch):
+    """`pack_frames`, `unpack_frames` and `_yuv_to` on the host runtime and on
+    their plain versions (png_io's codec, ops/color.yuv2rgb_matlab_u8, the
+    parent's route): the same decoded frames, bit for bit, either way."""
+    from fisr_tpu_torch.data import png_io
+    from fisr_tpu_torch.ops import color
+
+    frames = _noise(2, seed=4) + _frames(2, seed=5)
+    payload = pack_frames(frames)
+    got, rgb = unpack_frames(payload), daemon._yuv_to(frames, "rgb")
+    with monkeypatch.context() as m:
+        m.setattr(daemon, "encode_png_bytes", png_io.encode_png)
+        m.setattr(daemon, "decode_png_bytes", png_io.decode_png)
+        m.setattr(daemon, "yuv2rgb_ops_u8", color.yuv2rgb_matlab_u8)
+        plain_payload = pack_frames(frames)
+        want, want_rgb = unpack_frames(plain_payload), daemon._yuv_to(frames, "rgb")
+        crossed = unpack_frames(payload)
+    for i, f in enumerate(frames):
+        for other in (got[i], want[i], crossed[i], unpack_frames(plain_payload)[i]):
+            np.testing.assert_array_equal(other, f)
+        np.testing.assert_array_equal(rgb[i], want_rgb[i])
+
+
 def test_edge_colour_conversion_matches_jax():
     """(b) `_yuv_from` (RGB -> YUV, f32 then rint) and `_yuv_to` (YUV -> RGB,
     f64 then truncation) against the JAX package's: 0 u8 counts differ over

@@ -10,7 +10,9 @@ phase against the reference's own run (test_phase.npz): the four means
 within 4.7e-9 (bound 1e-6), saved PNGs equal on 100 % of pixels (bound: 1
 u8 count, 99.9 % equal); EvalResult against the JAX evaluate_test_set at
 ch=8 within 7.5e-9 (bound 1e-6), saved PNGs within 1 u8 count;
-evaluate_video_folder within 3.2e-7 (bound 1e-6).
+evaluate_video_folder within 3.2e-7 (bound 1e-6); the saved PNGs of one
+scene of the same predictions equal the JAX package's bit for bit (both
+colour with the JAX native library's constants).
 """
 
 import json
@@ -205,6 +207,53 @@ def test_evaluate_test_set_matches_jax(tmp_path, small, engine, ssim_impl):
         a = read_png(tmp_path / "port" / name).astype(np.int16)
         b = read_png(tmp_path / "jax" / name).astype(np.int16)
         assert np.abs(a - b).max() <= 1, name
+
+
+def test_evaluate_saves_the_jax_packages_frames_bit_for_bit(tmp_path):
+    """One scene whose predictions (from one oracle runner, so the same in
+    both packages) hold every YUV triple on which the JAX native library's
+    constants and ops/color's truncate apart: the port's saved RGB frames
+    equal fisr_tpu.infer.evaluate's, pixel for pixel, and the ops/color
+    route would not have."""
+    from fisr_tpu_torch import native
+    from fisr_tpu_torch.ops import color
+
+    a = np.arange(1 << 24, dtype=np.uint32)
+    tri = np.stack([(a >> 16) & 255, (a >> 8) & 255, a & 255], -1).astype(np.uint8)
+    apart = tri[(native.yuv2rgb_matlab_u8(tri) != native.yuv2rgb_ops_u8(tri)).any(-1)]
+    assert len(apart) == 87
+    lr, gt, flow, warp = _scene(7)
+    lr_dir, gt_dir, flow_path, warp_path = _write_scene(str(tmp_path), lr, gt, flow, warp,
+                                                        mods=(jflo, jmatio))
+    rng = np.random.default_rng(8)
+    pred_u8 = rng.integers(0, 256, (3, 128, 128, 3, 3), dtype=np.uint8)
+    pred_u8.reshape(-1, 3)[:3 * len(apart)] = np.tile(apart, (3, 1))
+    pred_u8 = pred_u8.reshape(3, 128, 128, 9)
+    preds = ((pred_u8.astype(np.float32) + 0.5) / 255).astype(np.float32)
+    assert np.array_equal(np.uint8(preds * 255), pred_u8)
+
+    class Oracle:
+        grid, sf, device = (1, 1), 2, torch.device("cpu")
+
+        def __call__(self, inp):
+            return preds
+
+    kw = dict(input_size=(64, 64), verbose=False, ssim_impl="pil")
+    jevaluate.evaluate_test_set(Oracle(), lr_dir, gt_dir, flow_path, warp_path,
+                                out_dir=str(tmp_path / "jax"), **kw)
+    evaluate.evaluate_test_set(Oracle(), lr_dir, gt_dir, flow_path, warp_path,
+                               out_dir=str(tmp_path / "port"), **kw)
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert names == sorted(os.listdir(tmp_path / "port")) and len(names) == 7
+    ops_route_differs = False
+    for name in names:
+        ours, theirs = read_png(tmp_path / "port" / name), read_png(tmp_path / "jax" / name)
+        np.testing.assert_array_equal(ours, theirs, err_msg=name)
+        window, s = divmod(int(name.split("_")[-1][:-4]) - 1, 2)
+        window, s = (window, s) if window < 3 else (2, 2)  # the last frame: window 2's third
+        ops_route_differs |= not np.array_equal(
+            color.yuv2rgb_matlab_u8(pred_u8[window, :, :, 3 * s:3 * s + 3]), ours)
+    assert ops_route_differs
 
 
 def test_evaluate_scenes_scores_identity(tmp_path, small):

@@ -532,7 +532,8 @@ def test_port_sources_import_no_jax():
             "fisr_tpu_torch/convert/cli.py", "fisr_tpu_torch/cli/prepare.py",
             "fisr_tpu_torch/cli/build_corpus.py", "fisr_tpu_torch/utils/supervisor.py",
             "fisr_tpu_torch/core/mesh.py", "fisr_tpu_torch/infer/sharded.py",
-            "fisr_tpu_torch/infer/serving.py"} <= rel
+            "fisr_tpu_torch/infer/serving.py", "fisr_tpu_torch/native/__init__.py",
+            "fisr_tpu_torch/native/bindings.py", "fisr_tpu_torch/native/build.py"} <= rel
     assert len(rel) > 55
 
 

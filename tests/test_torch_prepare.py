@@ -178,6 +178,40 @@ def test_build_corpus_matches_jax(tmp_path, weights, monkeypatch):
                            "--device", "cpu"])
 
 
+def test_build_corpus_through_the_host_runtime_equals_its_plain_route(tmp_path, monkeypatch):
+    """`build_corpus` decoding and converting with the host runtime, and with
+    the parent's route (png_io.read_png, ops/color.rgb2yuv_matlab_u8 in f32):
+    the same LR and HR patches on these frames (flows stubbed: both routes
+    hand the same frames to them). Over all 2^24 RGB triples the two
+    conversions differ on 233 (tests/test_torch_native.py); there the runtime
+    follows the JAX package's native conversion."""
+    from fisr_tpu_torch import native
+    from fisr_tpu_torch.ops import color
+
+    frames_dir = tmp_path / "frames"
+    frames_dir.mkdir()
+    scene = _scene(np.random.default_rng(1), 11, 80, 112)
+    for i in range(11):
+        write_png(scene[i].astype(np.uint8), frames_dir / f"fr_{i:03d}.png")
+    paths = list_pngs(str(frames_dir))
+    monkeypatch.setattr(prepare, "flows_for_sequences",
+                        lambda pwc, seqs, ss=1, device=None: np.zeros(
+                            (len(seqs), 8 // ss, *seqs.shape[2:4], 2), np.float32))
+    monkeypatch.setattr(prepare, "warps_for_sequences",
+                        lambda seqs, fl, ss=1, device=None: np.zeros(
+                            (len(seqs), 8 // ss, *seqs.shape[2:4], 3), np.float32))
+    kw = dict(pwc=None, seed=3, stride=2, verbose=False, device="cpu")
+    ours = build_corpus.build_corpus(paths, str(tmp_path / "native"), 4, 24, **kw)
+    plain = native.plain_versions()
+    with monkeypatch.context() as m:
+        m.setattr(native, "decode_png_batch", plain["decode_png_batch"])
+        m.setattr(native, "rgb2yuv_matlab_u8", color.rgb2yuv_matlab_u8)
+        theirs = build_corpus.build_corpus(paths, str(tmp_path / "plain"), 4, 24, **kw)
+    for key, name in (("data_path", "LR_data"), ("label_path", "HR_data")):
+        np.testing.assert_array_equal(matio.read_train_mat(ours[key], name),
+                                      matio.read_train_mat(theirs[key], name))
+
+
 def test_rgb2yuv_matlab_u8_matches_jax():
     rgb = np.random.default_rng(0).integers(0, 256, (256, 256, 3), dtype=np.uint8)
     ours = rgb2yuv_matlab_u8(rgb)

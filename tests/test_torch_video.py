@@ -9,11 +9,20 @@ warps 3.1e-5 on [0, 255] values (bound 1e-3), window 1.8e-8 and fused step
 1.5e-8 (bound 1e-4), pipeline frames 0 u8 counts (bound 1), fused and
 staged; the window under fisr_grid (1, 2) and 'auto' 1.4e-8 (bound 1e-4); the
 staged path's .flo 6.1e-8 px and .mat 2.1e-7 (of [0, 1]) against the JAX
-pipeline's files.
+pipeline's files. The pipeline's frames through the host runtime
+(fisr_tpu_torch/native) and through its plain versions: bit-equal.
+
+The JAX fused loop writes window k's third frame and window k+1's first to
+the same two files from two of its four writer threads at once, so which of
+the two lands is a race (one md5 in six differed under load). Its pipeline
+runs here with one writer thread: the writes land in submission order and the
+later one wins, as in its serial loop and in the port.
 """
 
+import concurrent.futures
 import glob
 import os
+from concurrent.futures.thread import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -29,10 +38,12 @@ from fisr_tpu.models import fisrnet as jfisrnet
 from fisr_tpu.models import pwcnet as jpwcnet
 from fisr_tpu_torch.convert import params
 from fisr_tpu_torch.convert.oracle import deterministic_tf_vars
-from fisr_tpu_torch.data import flo, matio
+from fisr_tpu_torch import native
+from fisr_tpu_torch.data import flo, matio, png_io
 from fisr_tpu_torch.data.png_io import read_png, write_png
 from fisr_tpu_torch.infer import video
 from fisr_tpu_torch.models import pwcnet
+from fisr_tpu_torch.ops import color
 
 torch.set_num_threads(1)
 SMALL = dict(pyr_lvls=4, flow_pred_lvl=2, search_range=2)
@@ -135,11 +146,17 @@ def _write_folder(folder, n=4, h=32, w=32):
     return str(folder)
 
 
-def test_pipeline_matches_jax_pipeline(tmp_path, full_pwc_trees):
+def _one_writer_thread(*args, **kwargs):
+    return ThreadPoolExecutor(max_workers=1)
+
+
+def test_pipeline_matches_jax_pipeline(tmp_path, full_pwc_trees, monkeypatch):
     ftree, ptree = full_pwc_trees
     folder = _write_folder(tmp_path / "vid")
-    want = jvideo.run_video_pipeline(ftree, ptree, folder, out_folder=str(tmp_path / "jax"),
-                                     fused=True, verbose=False)
+    with monkeypatch.context() as m:  # the JAX writers' race (module docstring)
+        m.setattr(concurrent.futures, "ThreadPoolExecutor", _one_writer_thread)
+        want = jvideo.run_video_pipeline(ftree, ptree, folder, out_folder=str(tmp_path / "jax"),
+                                         fused=True, verbose=False)
     fisr = params.fisrnet_from_jax(ftree, device="cpu")
     pwc = params.pwcnet_from_jax(ptree, device="cpu")
     got = video.run_video_pipeline(fisr, pwc, folder, out_folder=str(tmp_path / "port"),
@@ -148,11 +165,37 @@ def test_pipeline_matches_jax_pipeline(tmp_path, full_pwc_trees):
     assert [os.path.basename(p) for p in got] == [os.path.basename(p) for p in want]
     names = sorted(os.path.basename(p) for p in glob.glob(str(tmp_path / "jax" / "*.png")))
     assert len(names) == 10  # 5 output frames, RGB and YUV
+    assert names == sorted(os.listdir(tmp_path / "port"))
     for name in names:
         a = read_png(tmp_path / "port" / name).astype(np.int16)
         b = read_png(tmp_path / "jax" / name).astype(np.int16)
         assert a.shape == (64, 64, 3)
         assert np.abs(a - b).max() <= 1, name
+
+
+def test_pipeline_frames_through_the_host_runtime_equal_its_plain_versions(
+        tmp_path, full_pwc_trees, monkeypatch):
+    """The fused pipeline with its host stages on the host runtime (threaded
+    decode, colour with ops/color's constants, threaded encode) and on their
+    plain versions (read_png, ops/color.yuv2rgb_matlab_u8, png_io.encode_png,
+    the parent's route): the same files, pixel for pixel."""
+    ftree, ptree = full_pwc_trees
+    folder = _write_folder(tmp_path / "vid")
+    fisr = params.fisrnet_from_jax(ftree, device="cpu")
+    pwc = params.pwcnet_from_jax(ptree, device="cpu")
+    kw = dict(fused=True, verbose=False, device="cpu")
+    video.run_video_pipeline(fisr, pwc, folder, out_folder=str(tmp_path / "native"), **kw)
+    plain = native.plain_versions()
+    with monkeypatch.context() as m:
+        m.setattr(video, "decode_png_batch", plain["decode_png_batch"])
+        m.setattr(video, "yuv2rgb_ops_u8", color.yuv2rgb_matlab_u8)
+        m.setattr(video, "encode_png_bytes", png_io.encode_png)
+        video.run_video_pipeline(fisr, pwc, folder, out_folder=str(tmp_path / "plain"), **kw)
+    names = sorted(os.listdir(tmp_path / "plain"))
+    assert len(names) == 10 and names == sorted(os.listdir(tmp_path / "native"))
+    for name in names:
+        np.testing.assert_array_equal(read_png(tmp_path / "native" / name),
+                                      read_png(tmp_path / "plain" / name), err_msg=name)
 
 
 def test_staged_pipeline_matches_jax_pipeline(tmp_path, full_pwc_trees):
