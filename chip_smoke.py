@@ -63,10 +63,12 @@ Phases (any failure raises and exits non-zero):
    160x160 the stale-halo shrink against the full ring, within 1e-6.
 6. staged - run_video_pipeline(fused=False, grid=(2, 2)) on the same frames:
    6 outputs, 15 more cost-volume launches (all bf16), frames compared with
-   the fused run's; with h5py on the machine the .flo and .mat artifacts are
-   written and read back, without it the run says so.
+   the fused run's; the .flo and .mat artifacts written and read back
+   (data/flo, data/matio on the port's own HDF5 codec, data/hdf5).
 7. eval   - the reference's test setting: one synthetic scene of 5 LR frames
-   1080x1920 and 7 GT frames through TiledRunner(grid=(2, 2), boundary=32)
+   1080x1920 and 7 GT frames, its .flo and warp .mat (8x1080x1920x3 f32,
+   199 MB) written by the port's writers (matio's write and read MB/s), through
+   evaluate_test_set with TiledRunner(grid=(2, 2), boundary=32)
    (12 patches of 544x992x29 in one batch), PSNR and SSIM; ssim on the
    card against tests/fixtures/tf_oracle/ssim_tf.npz; a runner that returns
    the ground truth must score SSIM 1 and a PSNR above 120 dB under both
@@ -112,6 +114,18 @@ Phases (any failure raises and exits non-zero):
    --ckpt (the PWC-Net one with --verify-crc) into checkpoints of the port
    that the CLI's restore route reads: every state-dict tensor bit-equal to
    the originals. Prints each bundle's MB and read time.
+   corpus - the .mat workflows, each through its CLI's main(argv) on cuda:
+   cli/build_corpus on 17 synthetic YUV frames of 1080x1920 (48 samples of
+   96x96) with the converted full-width PWC-Net, f32: exactly 1440 fma_f32
+   launches (6 flow calls a sample x 5 levels); cli/prepare flow-from-mat
+   --ss 1 on its LR .mat (960 launches) and warp-from-mat (0), both outputs
+   equal to build_corpus's; the kernel against the plain version at their
+   shapes; matio's write and read MB/s on the HR .mat; TrainStore.from_files'
+   seconds; ms a bf16 train step fed from the file-backed store and from
+   data/synth's in-memory one; cli.main --phase train on the corpus (FISRnet
+   ch=64, bf16, batch 8, --val_data_size 16, 1 epoch = 4 steps, checkpoint)
+   and its test phase on the eval phase's test set, then --phase test from
+   the checkpoint: the same PSNR and SSIM.
 12. trained - with tensorstore on the machine: the repo's trained PWC-Net
    (checkpoint_dir/pwcnet, an orbax store) through the CLI's default
    restore, the fused main path on it at 1024x1920 bf16 (15 launches, all
@@ -158,7 +172,8 @@ bf16 and f32 forward kernels and the backward kernel; the bf16 entry's
 `launches_serve` counts a /v1/window and a steady stream frame,
 `launches_trained` the trained phase's run or null, `launches_multi` the
 multi phase's stream round, video step, window and stream frame; the f32
-entry's `launches_prepare` the prepare phase's runs; `pwc_train_step_dp` in
+entry's `launches_prepare` the prepare phase's runs, `launches_corpus` the
+corpus phase's; `pwc_train_step_dp` in
 `launches_train` the data-parallel step's), and as its
 last line {"ok": true, "device": {...}}. Without a CUDA device it exits
 with 1 and prints no result.
@@ -928,6 +943,29 @@ def have_module(name: str) -> bool:
     return True
 
 
+def mat_rates(tag, path, write, read, key):
+    """Times `write` (a data/matio writer of `path`), `read` (its reader,
+    straight after the write: from the page cache) and the codec's own read
+    of dataset `key` (data/hdf5, without matio's /255 and axis view); logs
+    MB/s of the file's bytes."""
+    from fisr_tpu_torch.data import hdf5
+
+    t0 = time.perf_counter()
+    write()
+    t_write = time.perf_counter() - t0
+    mb = os.path.getsize(path) / 1e6
+    t0 = time.perf_counter()
+    read()
+    t_read = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with hdf5.File(path) as f:
+        f[key].read()
+    t_codec = time.perf_counter() - t0
+    log(f"{tag} data/matio on {os.path.basename(path)} ({mb:.1f} MB): write {t_write:.3f} s "
+        f"({mb / t_write:.0f} MB/s), read {t_read:.3f} s ({mb / t_read:.0f} MB/s), "
+        f"data/hdf5's read alone {t_codec:.3f} s ({mb / t_codec:.0f} MB/s)")
+
+
 def phase_staged(fisr, pwc, folder, tmp):
     from fisr_tpu_torch.data import flo, matio
     from fisr_tpu_torch.data.png_io import read_png
@@ -936,10 +974,6 @@ def phase_staged(fisr, pwc, folder, tmp):
     from fisr_tpu_torch.ops.conv import BF16
 
     h, w = WINDOW
-    artifacts = have_module("h5py")
-    if not artifacts:
-        log("[staged] this machine has no h5py: write_artifacts=False, the .mat round trip "
-            "was not exercised on the card (the CPU tests cover it)")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(kernel)
@@ -947,7 +981,7 @@ def phase_staged(fisr, pwc, folder, tmp):
     with torch.inference_mode():
         outs = run_video_pipeline(fisr, pwc, folder, out_folder=os.path.join(tmp, "staged"),
                                   grid=(2, 2), boundary=32, policy=BF16,
-                                  write_artifacts=artifacts, fused=False,
+                                  write_artifacts=True, fused=False,
                                   flow_upscale=FLOW_UPSCALE, device="cuda", verbose=False)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -968,18 +1002,17 @@ def phase_staged(fisr, pwc, folder, tmp):
         raise AssertionError(f"staged vs fused frames: max {worst} u8 counts, mean {max(means)} "
                              f"(bounds {STAGED_MAX_U8}, {STAGED_MEAN_U8})")
     log(f"[staged] pipeline: 4 frames -> {len(outs)} outputs, {launches} cost-volume launches, "
-        f"{seconds:.2f} s (write_artifacts={artifacts}), peak {peak_gib:.2f} GiB; YUV frames vs "
+        f"{seconds:.2f} s (the .flo/.mat artifacts written), peak {peak_gib:.2f} GiB; YUV frames vs "
         f"the fused run's: max {worst} u8 counts, worst frame mean {max(means):.4f} "
         f"(bounds {STAGED_MAX_U8}, {STAGED_MEAN_U8})")
-    if artifacts:
-        flows = flo.read_flo_5dim(os.path.join(folder, "scene1_test_ss1_fr4.flo"))
-        warps = matio.read_warp_mat(os.path.join(folder, "scene1_ss1_fr4_warp.mat"))
-        if flows.shape != (3, 2, h, w, 2) or warps.shape != (3, 2, h, w, 3) or not (
-                np.isfinite(flows).all() and 0.0 <= warps.min() and warps.max() <= 1.0):
-            raise AssertionError(f"artifacts: flows {flows.shape}, warps {warps.shape}, warp range "
-                                 f"[{warps.min()}, {warps.max()}]")
-        log(f"[staged] artifacts read back: .flo {flows.shape}, max |flow| "
-            f"{np.abs(flows).max():.3f} px; .mat {warps.shape} in [0, 1]")
+    flows = flo.read_flo_5dim(os.path.join(folder, "scene1_test_ss1_fr4.flo"))
+    warps = matio.read_warp_mat(os.path.join(folder, "scene1_ss1_fr4_warp.mat"))
+    if flows.shape != (3, 2, h, w, 2) or warps.shape != (3, 2, h, w, 3) or not (
+            np.isfinite(flows).all() and 0.0 <= warps.min() and warps.max() <= 1.0):
+        raise AssertionError(f"artifacts: flows {flows.shape}, warps {warps.shape}, warp range "
+                             f"[{warps.min()}, {warps.max()}]")
+    log(f"[staged] artifacts read back through data/flo and data/matio: .flo {flows.shape}, max "
+        f"|flow| {np.abs(flows).max():.3f} px; .mat {warps.shape} in [0, 1]")
     return launches
 
 
@@ -1031,14 +1064,12 @@ def phase_eval(fisr, tmp):
     kw = dict(out_dir=os.path.join(tmp, "eval_out"), input_size=(h0, w0), verbose=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    flow_path, warp_path = os.path.join(tmp, "eval.flo"), os.path.join(tmp, "eval_warp.mat")
+    flo.write_flo_5dim(flow, flow_path)
+    mat_rates("[eval]", warp_path, lambda: matio.write_warp_mat(warp, warp_path),
+                   lambda: matio.read_warp_mat(warp_path), "pred")
     t0 = time.perf_counter()
-    if have_module("h5py"):
-        flow_path, warp_path = os.path.join(tmp, "eval.flo"), os.path.join(tmp, "eval_warp.mat")
-        flo.write_flo_5dim(flow, flow_path)
-        matio.write_warp_mat(warp, warp_path)
-        res = evaluate.evaluate_test_set(runner, lr_dir, gt_dir, flow_path, warp_path, **kw)
-    else:
-        res = evaluate.evaluate_scenes(runner, lr_dir, gt_dir, flow, warp / 255.0, **kw)
+    res = evaluate.evaluate_test_set(runner, lr_dir, gt_dir, flow_path, warp_path, **kw)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -1049,9 +1080,8 @@ def phase_eval(fisr, tmp):
     log(f"[eval] TiledRunner (2, 2) exact, bf16, ssim_impl=gaussian: {res}")
     if len(os.listdir(kw["out_dir"])) != 7:
         raise AssertionError(f"eval wrote {os.listdir(kw['out_dir'])}")
-    log(f"[eval] through {'evaluate_test_set (.flo/.mat files)' if have_module("h5py") else 'evaluate_scenes (no h5py here)'}: "
-        f"one pass in {seconds:.2f} s, peak {peak_gib:.2f} GiB")
-    sec_per_frame = res.sec_per_frame
+    log(f"[eval] through evaluate_test_set (.flo/.mat files of the port's writers): one pass in "
+        f"{seconds:.2f} s, peak {peak_gib:.2f} GiB")
 
     class TruthRunner:
         """Returns the ground truth for each window: scoring must then be perfect."""
@@ -1073,7 +1103,9 @@ def phase_eval(fisr, tmp):
             raise AssertionError(f"ground truth scored against itself ({impl}): {res}")
         log(f"[eval] ground truth against itself, ssim_impl={impl}: PSNR {res.psnr_vfi_sr:.1f} / "
             f"{res.psnr_sr:.1f} dB, SSIM {res.ssim_vfi_sr:.7f} / {res.ssim_sr:.7f}")
-    return sec_per_frame, peak_gib
+    test_set = {"test_data_path": lr_dir, "test_label_path": gt_dir,
+                "test_flow_data_path": flow_path, "test_warped_data_path": warp_path}
+    return test_set
 
 
 @contextlib.contextmanager
@@ -1233,6 +1265,7 @@ def phase_train(tmp):
         + f"; f32 as its policy runs it (TF32 off), and with PyTorch's TF32 convolutions "
           f"{out['f32']['ms_tf32']:.2f} ms a step"
         + f"; one stacked read-back of the 11 metrics {readback_ms:.3f} ms")
+    return out["bf16"]["ms"]
 
 
 def cv_backward(kernel, shapes, dtype, g):
@@ -1571,6 +1604,155 @@ def phase_weights(fisr, pwc, tmp):
     return os.path.join(ck, "pwcnet")
 
 
+CORPUS_FRAMES, CORPUS_SAMPLES = 17, 48  # 3 windows of 9 frames at stride 4
+
+
+def store_step_ms(store, batch_size):
+    """ms a bf16 train step (full-width FISRnet, fresh weights) fed from
+    `store` as fit feeds it: the host gathers each batch, uploads it, steps;
+    one epoch of warm-up, then one timed epoch."""
+    from fisr_tpu_torch.convert import params
+    from fisr_tpu_torch.ops.conv import BF16
+    from fisr_tpu_torch.train import trainer
+
+    model = params.deterministic_fisrnet(device="cuda")
+    state = trainer.TrainState(model, trainer.tf_adam(1e-4)(model.parameters()))
+    step = trainer.make_train_step(policy=BF16)
+    for timed_epoch in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in store.batches(batch_size, epoch_seed=int(timed_epoch)):
+            state, _ = step(state, trainer.batch_to_device(batch, "cuda"))
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / store.num_batches(batch_size)
+
+
+def phase_corpus(pwc_ckpt, test_set, train_ms, tmp):
+    """The reference's .mat workflows on the card, each through its CLI's
+    main(argv) on cuda: build_corpus on CORPUS_FRAMES synthetic YUV frames of
+    EVAL_INPUT with the converted full-width PWC-Net (f32), prepare
+    flow-from-mat / warp-from-mat on its LR .mat (equal to build_corpus's
+    files), --phase train on the corpus (full width, bf16, batch 8, 4 steps)
+    with its test phase on [eval]'s test set, and --phase test from that
+    checkpoint (the same scores). Returns the launches and the
+    kernel-vs-plain |diff| at their shapes."""
+    from fisr_tpu_torch import native
+    from fisr_tpu_torch.cli import build_corpus, prepare
+    from fisr_tpu_torch.cli import main as cli
+    from fisr_tpu_torch.data import flo, matio
+    from fisr_tpu_torch.data.dataset import TrainStore
+    from fisr_tpu_torch.data.synth import synthetic_store
+    from fisr_tpu_torch.kernels import cost_volume as kernel
+
+    h, w = EVAL_INPUT
+    frames_dir, out = os.path.join(tmp, "corpus_frames"), os.path.join(tmp, "corpus")
+    os.makedirs(frames_dir)
+    for i, fr in enumerate(synthetic_frames(CORPUS_FRAMES, h, w, seed=7)):
+        native.encode_png(fr, os.path.join(frames_dir, f"frame_{i:03d}.png"))
+    patch, batch_size, val = TRAIN_PATCH, 8, 16
+    launches, seen_all, walls = {}, [], {}
+
+    def run(tag, fn, argv, want):
+        torch.cuda.synchronize()
+        reset_launches(kernel)
+        t0 = time.perf_counter()
+        with recorded_launches(kernel) as (seen, _):
+            result = fn(argv)
+        torch.cuda.synchronize()
+        walls[tag] = time.perf_counter() - t0
+        require_launches(kernel, tag, want=want, variant="fma_f32")
+        launches[tag] = kernel.LAUNCHES
+        seen_all.extend(seen)
+        return result
+
+    # 6 flow calls a sample (4 pairs at ss 1, 2 at ss 2), 5 launches a call
+    paths = run("build_corpus", build_corpus.main,
+                ["--frames", frames_dir, "--out", out, "--yuv", "--samples", str(CORPUS_SAMPLES),
+                 "--patch", str(patch), "--pwc_ckpt", pwc_ckpt, "--device", "cuda"],
+                30 * CORPUS_SAMPLES)
+    flow_again, warp_again = os.path.join(tmp, "again_ss1.flo"), os.path.join(tmp, "again_warp.mat")
+    run("flow_from_mat", prepare.main,
+        ["flow-from-mat", "--mat", paths["data_path"], "--ss", "1", "--out", flow_again,
+         "--pwc_ckpt", pwc_ckpt, "--device", "cuda"], 20 * CORPUS_SAMPLES)
+    run("warp_from_mat", prepare.main,
+        ["warp-from-mat", "--mat", paths["data_path"], "--flo", flow_again, "--ss", "1",
+         "--out", warp_again, "--device", "cuda"], 0)
+    hh = patch * FLOW_UPSCALE
+    err = check_recorded(kernel, seen_all, [(2, hh >> lvl, hh >> lvl, c)
+                                            for lvl, c in LEVEL_CHANNELS.items()]
+                         * (6 + 4) * CORPUS_SAMPLES, "corpus", seed=11)
+    flows = flo.read_flo_5dim(paths["flow_path"])
+    if not np.array_equal(flo.read_flo_5dim(flow_again), flows):
+        raise AssertionError("prepare flow-from-mat differs from build_corpus's ss1 .flo")
+    warps = matio.read_warp_mat(paths["warp_path"])
+    if not np.array_equal(matio.read_warp_mat(warp_again), warps):
+        raise AssertionError("prepare warp-from-mat differs from build_corpus's ss1 _warp.mat")
+    if flows.shape != (CORPUS_SAMPLES, 8, patch, patch, 2) or not np.isfinite(flows).all() or \
+            warps.shape != (CORPUS_SAMPLES, 8, patch, patch, 3) or not np.isfinite(warps).all():
+        raise AssertionError(f"corpus: flows {flows.shape}, warps {warps.shape}")
+    log(f"[corpus] build_corpus on {CORPUS_FRAMES} YUV frames of {h}x{w}: {CORPUS_SAMPLES} "
+        f"samples of {patch}x{patch} in {walls['build_corpus']:.2f} s, "
+        f"{launches['build_corpus']} cost-volume launches; prepare flow-from-mat --ss 1 "
+        f"{launches['flow_from_mat']} launches ({walls['flow_from_mat']:.2f} s), warp-from-mat "
+        f"{launches['warp_from_mat']} ({walls['warp_from_mat']:.2f} s), all fma_f32; their "
+        f".flo and _warp.mat equal to build_corpus's; the kernel against the plain version at "
+        f"their shapes: max |diff| {err}")
+
+    # the codec's rates at the corpus's size, and the store the train phase reads
+    # C-contiguous [N, 7, 2h, 2w, 3] as build_corpus holds it (the reader's
+    # view would make the writer's axis swap contiguous)
+    hr = np.ascontiguousarray(matio.read_train_mat(paths["label_path"], "HR_data")) * np.float32(255)
+    mat_rates("[corpus]", os.path.join(tmp, "hr_again.mat"),
+                   lambda: matio.write_train_mat(os.path.join(tmp, "hr_again.mat"), "HR_data", hr),
+                   lambda: matio.read_train_mat(os.path.join(tmp, "hr_again.mat"), "HR_data"),
+                   "HR_data")
+    del hr
+    t0 = time.perf_counter()
+    store = TrainStore.from_files(**paths, val_size=val)
+    from_files_s = time.perf_counter() - t0
+    memory = synthetic_store(n_samples=CORPUS_SAMPLES, h=patch, w=patch, seed=0, val_size=val)
+    step_ms = {"file": store_step_ms(store, batch_size), "memory": store_step_ms(memory, batch_size)}
+    log(f"[corpus] TrainStore.from_files on the six files: {from_files_s:.3f} s; a bf16 train "
+        f"step (batch {batch_size}, fed as fit feeds it: gather, upload, step) on the "
+        f"file-backed store {step_ms['file']:.2f} ms, on data/synth's in-memory store "
+        f"{step_ms['memory']:.2f} ms; [train]'s step on a batch already on the card "
+        f"{train_ms:.2f} ms")
+    del store, memory
+
+    args = ["--device", "cuda", "--checkpoint_dir", os.path.join(tmp, "corpus_ckpt"),
+            "--log_dir", os.path.join(tmp, "corpus_log"), "--text_dir", os.path.join(tmp, "corpus_text"),
+            "--test_img_dir", os.path.join(tmp, "corpus_img"),
+            "--train_data_path", paths["data_path"], "--train_label_path", paths["label_path"],
+            "--train_flow_data_path", paths["flow_path"],
+            "--train_flow_ss2_data_path", paths["flow_ss2_path"],
+            "--train_warped_data_path", paths["warp_path"],
+            "--train_wapred_ss2_data_path", paths["warp_ss2_path"],
+            "--batch_size", str(batch_size), "--val_data_size", str(val), "--epoch", "1",
+            "--test_input_size", str(h), str(w)]
+    args += [x for k, v in test_set.items() for x in (f"--{k}", v)]
+    trained = run("train_phase", cli.main, ["--phase", "train"] + args, 0)
+    tested = run("test_phase", cli.main, ["--phase", "test"] + args, 0)
+    steps = (CORPUS_SAMPLES - val) // batch_size
+    with open(os.path.join(tmp, "corpus_log", "FISRnet_exp1", "metrics.jsonl")) as f:
+        rec = json.loads(f.read().splitlines()[-1])
+    scores = lambda r: (r.psnr_vfi_sr, r.psnr_sr, r.ssim_vfi_sr, r.ssim_sr)
+    if rec["step"] != steps or not np.isfinite(list(rec.values())).all() or \
+            trained.n_frames != 7 or not np.isfinite(scores(trained)).all():
+        raise AssertionError(f"--phase train: epoch record {rec}, test {trained}")
+    if scores(tested) != scores(trained):
+        raise AssertionError(f"--phase test from the checkpoint {scores(tested)} differs from "
+                             f"the train phase's own test {scores(trained)}")
+    log(f"[corpus] cli.main --phase train on the corpus (FISRnet ch=64, bf16, batch "
+        f"{batch_size}, {steps} steps + validation + checkpoint, then the test phase on "
+        f"[eval]'s {h}x{w} scene) {walls['train_phase']:.2f} s: val_PSNR {rec['val_PSNR']:.3f}, "
+        f"test PSNR {trained.psnr_vfi_sr:.4f} / {trained.psnr_sr:.4f} dB, SSIM "
+        f"{trained.ssim_vfi_sr:.6f} / {trained.ssim_sr:.6f}; --phase test from the checkpoint "
+        f"{walls['test_phase']:.2f} s: the same scores")
+    return {"launches": {k: launches[k] for k in ("build_corpus", "flow_from_mat",
+                                                   "warp_from_mat")},
+            "err": err}
+
+
 def phase_trained(fisr, folder, tmp):
     """The repo's trained PWC-Net (an orbax store, checkpoint_dir/pwcnet)
     through the CLI's default restore, then the fused main path with it
@@ -1732,7 +1914,7 @@ def phase_prepare(pwc, which, ckpt_dir, tmp):
         f"cudnn_deterministic; warps finite; a pair (flow, f32, TF32 off) "
         f"{pair_ms['default']:.2f} ms with cuDNN's default algorithms, "
         f"{pair_ms['deterministic']:.2f} ms with its deterministic ones (what cli/prepare "
-        "runs). build_corpus writes .mat (h5py) and stays on the CPU: not run here")
+        "runs)")
     return launches, err, pair_ms
 
 
@@ -2042,10 +2224,11 @@ def main() -> int:
         served = timed(phase_serve, tmp)
         timed(phase_tiled, fisr, pwc, synthetic_frames(4, *WINDOW))
         launches_staged = timed(phase_staged, fisr, pwc, folder, tmp)
-        timed(phase_eval, fisr, tmp)
-        timed(phase_train, tmp)
+        test_set = timed(phase_eval, fisr, tmp)
+        train_ms = timed(phase_train, tmp)
         pwc_train = timed(phase_pwc_train, tmp)
         converted_pwc = timed(phase_weights, fisr, pwc, tmp)
+        corpus = timed(phase_corpus, converted_pwc, test_set, train_ms, tmp)
         trained_pwc, launches_trained = timed(phase_trained, fisr, folder, tmp)
         if trained_pwc is None:
             prepare_with = (pwc, "deterministic (the TF-oracle generator's, converted)",
@@ -2109,13 +2292,17 @@ def main() -> int:
                            "pwc_train_step_dp": multi["launches"]["pwc_train_step_dp"]},
         # cli/prepare flow-from-pngs, one scene of 5 frames of 1024x1920
         "launches_prepare": {"ss1": launches_prepare["ss1"], "ss2": launches_prepare["ss2"]},
+        # the corpus phase: cli/build_corpus (48 samples of 96x96), cli/prepare
+        # flow-from-mat --ss 1 and warp-from-mat on its LR .mat
+        "launches_corpus": corpus["launches"],
         # an f32 flow pair at 1024x1920 with cuDNN's default algorithms, and
         # with its deterministic ones (what cli/prepare runs)
         "prepare_pair_ms": prepare_pair_ms["default"],
         "prepare_pair_deterministic_ms": prepare_pair_ms["deterministic"],
-        # the inference level shapes, the ragged shapes, the training and prepare shapes
+        # the inference level shapes, the ragged shapes, the training, prepare and corpus shapes
         "max_abs_err": max([r["f32_err"] for r in levels] + [pwc_train["errs"]["f32"],
-                                                             err_prepare, multi["err_f32"]]),
+                                                             err_prepare, corpus["err"],
+                                                             multi["err_f32"]]),
         # one frame pair's five levels (levels 6..2) in f32
         "ms": sum(r["f32_ms"] for r in levels),
         "graph_ms": sum(r["f32_graph_ms"] for r in levels),

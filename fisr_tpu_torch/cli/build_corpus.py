@@ -18,9 +18,10 @@ artifact in the reference's on-disk formats:
 Frames may be RGB (converted to YUV with the MATLAB constants, like the
 reference datasets, in double as the JAX package's native runtime converts
 them: native.rgb2yuv_matlab_u8) or already YUV (--yuv). The .mat files go
-through data/matio, which needs h5py. `main` runs without TF32 and with cuDNN's
-deterministic algorithms (device.exact_f32, device.cudnn_deterministic), so a
-corpus built twice from the same frames and seed is the same bits.
+through data/matio (the port's own HDF5 writer). `main` runs without TF32
+and with cuDNN's deterministic algorithms (device.exact_f32,
+device.cudnn_deterministic), so a corpus built twice from the same frames
+and seed is the same bits.
 
 Usage:
   python -m fisr_tpu_torch.cli.build_corpus --frames ./frames_4k --out ./data/train \\

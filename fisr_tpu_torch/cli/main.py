@@ -4,7 +4,7 @@ The phases of fisr_tpu/cli/main.py on the port, with the JAX CLI's flag names
 and defaults (the reference's own main.py:23-106):
 
   train          - fit on the .mat / .flo corpus (the --train_*_path flags,
-                   which need h5py), checkpoints under
+                   read by data/matio's own HDF5 codec), checkpoints under
                    <checkpoint_dir>/FISRnet_exp<exp_num>, then the test phase
   test           - 4K benchmark evaluation from precomputed .flo / .mat
                    inputs (--eval_engine exact|fast, --ssim_impl, --test_patch,

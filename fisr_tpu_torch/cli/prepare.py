@@ -15,9 +15,10 @@ positions (2i, 2i+1), so sliding window w consumes flows [4w : 4w+8) merged
 channels, what Tensor_slicer_recurrent_flow expects (ops.py:99-106). Flows
 and warps run on `device` (infer/video.make_flow_fn under the F32 policy,
 one cost-volume launch a pyramid level a pair, and make_warp_fn); the .mat
-commands read and write through data/matio, which needs h5py. `main` runs
-without TF32 and with cuDNN's deterministic algorithms (device.exact_f32,
-device.cudnn_deterministic), so a corpus prepared twice is the same bits.
+commands read and write through data/matio (the port's own HDF5 codec).
+`main` runs without TF32 and with cuDNN's deterministic algorithms
+(device.exact_f32, device.cudnn_deterministic), so a corpus prepared twice
+is the same bits.
 
 Usage:
   python -m fisr_tpu_torch.cli.prepare flow-from-pngs --png_dir D --out f.flo --pwc_ckpt C

@@ -29,8 +29,12 @@ __all__ = ["TrainStore"]
 
 
 def _merge(x: np.ndarray) -> np.ndarray:
+    """[N, S, H, W, C] -> C-contiguous [N, H, W, S*C]. The train readers
+    return axis-swapped views whose merge reshapes without a copy; the
+    batch gather (native.gather_rows) would then copy the whole split on
+    every batch, so the copy is made here, once."""
     n, s, h, w, c = x.shape
-    return np.transpose(x, (0, 2, 3, 1, 4)).reshape(n, h, w, s * c)
+    return np.ascontiguousarray(np.transpose(x, (0, 2, 3, 1, 4))).reshape(n, h, w, s * c)
 
 
 @dataclasses.dataclass

@@ -17,8 +17,10 @@ Note the two readers use *different* axis fixups (swapaxes vs full reverse)
 because the upstream files were produced by different writers; we replicate
 both exactly.
 
-`h5py` is imported inside the functions: the package must import on a
-machine that has none, where only these functions fail.
+The files go through the port's own HDF5 codec (data/hdf5), so they are
+read and written where h5py is not installed. The writer's files hold the
+same datasets, attributes and userblock header as the JAX package's
+h5py-written ones; their bytes may differ.
 """
 
 from __future__ import annotations
@@ -27,25 +29,23 @@ import os
 
 import numpy as np
 
+from fisr_tpu_torch.data import hdf5
+
 __all__ = ["read_train_mat", "read_warp_mat", "write_warp_mat", "write_train_mat"]
 
 
 def read_train_mat(path: str | os.PathLike, key: str) -> np.ndarray:
     """Read 'LR_data'/'HR_data': [N, N_seq, H, W, C] float32 in [0, 1]."""
-    import h5py
-
-    with h5py.File(path, "r") as f:
-        data = f[key][()]
+    with hdf5.File(path) as f:
+        data = f[key].read()
     data = np.asarray(data, dtype=np.float32) / 255.0
     return np.swapaxes(data, 2, 4)
 
 
 def read_warp_mat(path: str | os.PathLike, key: str = "pred") -> np.ndarray:
     """Read warped-frame mat: [N, N_seq, H, W, C] float32 in [0, 1]."""
-    import h5py
-
-    with h5py.File(path, "r") as f:
-        data = f[key][()]
+    with hdf5.File(path) as f:
+        data = f[key].read()
     data = np.asarray(data, dtype=np.float32) / 255.0
     return np.transpose(data, (4, 3, 2, 1, 0))
 
@@ -58,20 +58,13 @@ _MATLAB_HEADER = (
 def _write_matlab_file(path, datasets: dict[str, np.ndarray]) -> None:
     """Write an HDF5 file MATLAB can open: userblock + MATLAB_class attrs.
 
-    `datasets` values are stored verbatim (the h5py row-major view); callers
+    `datasets` values are stored verbatim (the row-major view); callers
     pre-arrange the axis layout each FISR reader expects to undo.
     """
-    import h5py
-
-    with h5py.File(path, "w", userblock_size=512) as f:
-        for key, arr in datasets.items():
-            ds = f.create_dataset(key, data=arr)
-            ds.attrs.create("MATLAB_class", np.bytes_(b"single"))
-    with open(path, "r+b") as f:
-        header = _MATLAB_HEADER.ljust(116, b" ")
-        f.write(header)
-        f.seek(124)
-        f.write(b"\x00\x02IM")  # version 0x0200 + endian indicator
+    # the MAT-file header: text padded to 116 bytes, 8 bytes of subsystem
+    # offset, version 0x0200 and the endian indicator
+    header = _MATLAB_HEADER.ljust(116, b" ") + bytes(8) + b"\x00\x02IM"
+    hdf5.write(path, datasets, attrs={"MATLAB_class": b"single"}, userblock=header)
 
 
 def write_warp_mat(pred: np.ndarray, path: str | os.PathLike) -> None:

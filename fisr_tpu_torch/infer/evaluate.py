@@ -59,7 +59,7 @@ def evaluate_test_set(runner, test_data_dir: str, test_label_dir: str, flow_path
                       ssim_impl: str = "gaussian") -> EvalResult:
     """The `test` phase from its files: `flow_path` is the 5-dim .flo
     ([scenes, 8, H, W, 2]) and `warp_path` the warp .mat ([scenes, 8, H, W,
-    3], read into [0, 1]; needs h5py). `runner` is a TiledRunner or a
+    3], read into [0, 1]). `runner` is a TiledRunner or a
     FastTiledRunner."""
     flow = flo_io.read_flo_5dim(flow_path)
     warp = matio.read_warp_mat(warp_path)

@@ -246,8 +246,7 @@ def run_video_pipeline(fisr_model: fisrnet.FISRnet, pwc_model: pwcnet.PWCNet,
     TiledRunner(grid, boundary, mode='exact'), the reference's --test_patch
     tiling; frames are cropped to multiples of 32*grid. With write_artifacts
     the reference-format <scene>_test_ss1_fr<n>.flo and
-    <scene>_ss1_fr<n>_warp.mat go into the frame folder (the .mat needs
-    h5py).
+    <scene>_ss1_fr<n>_warp.mat go into the frame folder.
 
     flow_upscale=2 is the reference's trick (frames upscaled x2 before
     PWC-Net, the flow scaled back); 1 runs the flow at native resolution.

@@ -493,8 +493,10 @@ def _port_files():
 
 
 def _forbidden(name: str) -> bool:
+    """JAX and the JAX package; h5py too, which the card's machine lacks
+    (the .mat files go through data/hdf5)."""
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "optax", "orbax", "flax", "fisr_tpu")
+    return top in ("jax", "jaxlib", "optax", "orbax", "flax", "fisr_tpu", "h5py")
 
 
 def test_port_sources_import_no_jax():
@@ -516,6 +518,7 @@ def test_port_sources_import_no_jax():
             "fisr_tpu_torch/infer/evaluate.py", "fisr_tpu_torch/infer/video_eval.py",
             "fisr_tpu_torch/ops/metrics.py", "fisr_tpu_torch/ops/seq.py",
             "fisr_tpu_torch/data/flo.py", "fisr_tpu_torch/data/matio.py",
+            "fisr_tpu_torch/data/hdf5.py",
             "fisr_tpu_torch/cli/_common.py", "scripts/profile_torch_video.py",
             "fisr_tpu_torch/train/schedule.py", "fisr_tpu_torch/train/losses.py",
             "fisr_tpu_torch/train/trainer.py", "fisr_tpu_torch/train/checkpoint.py",
