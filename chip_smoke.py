@@ -9,14 +9,16 @@ Phases (any failure raises and exits non-zero):
    must report no spills for any of its kernels (bf16 mma.sync, f32 FMA,
    backward).
    native - the host runtime (fisr_tpu_torch/native): g++ builds
-   fisr_tpu_torch/csrc/native.cc; every function against its plain version
-   (numpy, the stdlib PNG codec of data/png_io, the crc loop of
+   fisr_tpu_torch/csrc/native.cc and zstd.cc; every function against its
+   plain version (numpy, the stdlib PNG codec of data/png_io, the crc loop of
    convert/tensor_bundle) at 1024x1920 and 2048x3840 (colour, PNG encode to
    bytes on all threads and on one, where the zlib versions agree the same
    bytes, and to a file, PNG decode of filter-0 and Paeth files from bytes
    and from a file, crc32c, the row gather, the (2, 2) halo patches; a
    6-frame batch decode) and the three colour conversions over all 2^24 u8
-   triples; each timed beside its plain version, with the host's cores.
+   triples; each timed beside its plain version, with the host's cores; the
+   zstd decoder (no plain version) on checkpoint_dir/pwcnet's largest chunk
+   on one thread and on all 182 chunks in one batch: MB/s, decoded sizes.
 2. kernel - the cost-volume kernels (bf16: mma.sync, f32: FMA) against the
    plain PyTorch version on the card at the five PWC-Net level shapes of a
    1024x1920 window (B=2, d=4), at ragged shapes (d=2 and 4, odd W and H,
@@ -126,17 +128,19 @@ Phases (any failure raises and exits non-zero):
    ch=64, bf16, batch 8, --val_data_size 16, 1 epoch = 4 steps, checkpoint)
    and its test phase on the eval phase's test set, then --phase test from
    the checkpoint: the same PSNR and SSIM.
-12. trained - with tensorstore on the machine: the repo's trained PWC-Net
-   (checkpoint_dir/pwcnet, an orbax store) through the CLI's default
-   restore, the fused main path on it at 1024x1920 bf16 (15 launches, all
-   mma_bf16), the steady window's time and spread, and an f32 flow of a
-   256x448 crop on the card against the same module on the CPU (1e-4 of max
-   |flow|). Without tensorstore (the card's machine has none): the reader
-   must refuse an orbax step with the ImportError that names the
-   convert.cli --orbax route, and the line says the route was not exercised.
+12. trained - the repo's trained PWC-Net (checkpoint_dir/pwcnet, an orbax
+   store) read without tensorstore or a zstd library (convert/ocdbt, the
+   host runtime's zstd decoder): the read's time and MB/s (host clock,
+   median of 3, page cache warm), the tree's SHA-256 against
+   TRAINED_PWC_SHA256 (pinned by tests/test_torch_orbax.py against
+   tensorstore's read); the CLI's default restore onto the card, bit-equal
+   to the module built from that tree; the fused main path on it at
+   1024x1920 bf16 (15 launches, all mma_bf16), the steady window's time and
+   spread, and an f32 flow of a 256x448 crop on the card against the same
+   module on the CPU (1e-4 of max |flow|).
 13. prepare - cli/prepare flow-from-pngs on one scene of 5 synthetic
-   1024x1920 PNG frames, f32, with the trained PWC-Net where phase 12 ran,
-   else the converted deterministic one: exactly 20 launches at ss=1 (4
+   1024x1920 PNG frames, f32, with the trained PWC-Net (--pwc_ckpt
+   checkpoint_dir/pwcnet): exactly 20 launches at ss=1 (4
    pairs x 5 levels) and 10 at ss=2, all fma_f32, the kernel against the
    plain version at their shapes; ss=1 once more with PyTorch's TF32
    defaults around the call, bit-equal to the first (the entry point sets
@@ -170,7 +174,7 @@ Phases (any failure raises and exits non-zero):
 Prints the card's name and power limit, a {"kernels": [...]} line (the
 bf16 and f32 forward kernels and the backward kernel; the bf16 entry's
 `launches_serve` counts a /v1/window and a steady stream frame,
-`launches_trained` the trained phase's run or null, `launches_multi` the
+`launches_trained` the trained phase's run, `launches_multi` the
 multi phase's stream round, video step, window and stream frame; the f32
 entry's `launches_prepare` the prepare phase's runs, `launches_corpus` the
 corpus phase's; `pwc_train_step_dp` in
@@ -209,6 +213,9 @@ GRAD_TOL = 1e-5    # PWC-Net parameter gradients, kernel vs plain forward, of th
 TRAIN_PATCH = 96   # the reference's training patches
 PWC_CROP = (256, 448)  # upstream tfoptflow's training crop
 SHRINK_TOL = 1e-6  # stale-halo shrink vs the full ring (f32): equal unless cuDNN changes algorithm
+# convert/orbax_read.tree_digest of checkpoint_dir/pwcnet/step_14000, pinned by
+# tests/test_torch_orbax.py against tensorstore's read of the same store
+TRAINED_PWC_SHA256 = "9e18a0b4d1fe2298769497502125336b1dfc0df871809ce8d380e6b7f04d597f"
 # staged (exact (2, 2) tiling) vs fused (full frame) output frames, bf16, in u8
 # counts: the halo truncates the receptive field and another conv extent may
 # take another bf16 summation order
@@ -471,6 +478,34 @@ def phase_native(tmp):
         png_io.write_png(fr, paths[-1])
     check("decode_png_batch 6 frames", f"{WINDOW[0]}x{WINDOW[1]}",
           lambda: native.decode_png_batch(paths), lambda: plain["decode_png_batch"](paths))
+    # the zstd decoder on the trained PWC-Net's chunks (an orbax store): no
+    # plain version; phase_trained holds the whole read against a pinned digest
+    from fisr_tpu_torch.convert.ocdbt import OcdbtStore
+
+    store = OcdbtStore(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    "checkpoint_dir", "pwcnet", "step_14000"))
+    chunks = {k: v for k, v in store.items() if not k.endswith("/.zarray")}
+    sizes = {}
+    for key in chunks:
+        meta = json.loads(store.read(key.rsplit("/", 1)[0] + "/.zarray"))
+        sizes[key] = int(np.prod(meta["chunks"])) * np.dtype(meta["dtype"]).itemsize
+    largest = max(chunks, key=lambda k: len(chunks[k]))
+    one, one_ms = host_ms(lambda: native.zstd_decompress(chunks[largest], sizes[largest]), 3)
+    frames, want = list(chunks.values()), list(sizes.values())
+    batch, batch_ms = host_ms(lambda: native.zstd_decompress_batch(frames, want), 3)
+    if not np.array_equal(one, batch[list(chunks).index(largest)]):
+        raise AssertionError("zstd_decompress and zstd_decompress_batch differ on one chunk")
+    rows += [{"name": "zstd_decompress (largest chunk)", "size": f"{len(chunks[largest])} -> "
+              f"{one.size} bytes", "ms": one_ms, "plain_ms": None},
+             {"name": f"zstd_decompress_batch ({len(frames)} chunks)",
+              "size": f"{sum(map(len, frames))} -> {sum(want)} bytes", "ms": batch_ms,
+              "plain_ms": None}]
+    log(f"[native] zstd_decompress on checkpoint_dir/pwcnet's largest chunk ({largest}): "
+        f"{len(chunks[largest]) / 1e6:.2f} MB -> {one.size / 1e6:.2f} MB in {one_ms:.2f} ms on "
+        f"one thread, {one.size / one_ms / 1e3:.0f} MB/s decoded; all {len(frames)} chunks in one "
+        f"batch on the host's cores: {sum(map(len, frames)) / 1e6:.2f} MB -> "
+        f"{sum(want) / 1e6:.2f} MB in {batch_ms:.2f} ms, {sum(want) / batch_ms / 1e3:.0f} MB/s "
+        "decoded (no plain version: [trained] checks the read's SHA-256)")
     log("[native] " + json.dumps({"host_cores": host_cores(), "rows": rows}))
     return rows
 
@@ -933,14 +968,6 @@ def phase_tiled(fisr, pwc, frames_u8):
         f"composed {e_glue} (bound {TILED_TOL}); 160x160: stale-halo shrink vs full ring on "
         f"retained pixels {e_shrink} (bound {SHRINK_TOL}; 0 = bit-equal)")
     return plans
-
-
-def have_module(name: str) -> bool:
-    try:
-        __import__(name)
-    except ImportError:
-        return False
-    return True
 
 
 def mat_rates(tag, path, write, read, key):
@@ -1754,34 +1781,36 @@ def phase_corpus(pwc_ckpt, test_set, train_ms, tmp):
 
 
 def phase_trained(fisr, folder, tmp):
-    """The repo's trained PWC-Net (an orbax store, checkpoint_dir/pwcnet)
-    through the CLI's default restore, then the fused main path with it
-    (`trained_main_path`). Returns (the module, the path's launches), or
-    (None, None) where this machine cannot read orbax."""
+    """The repo's trained PWC-Net (an orbax store, checkpoint_dir/pwcnet) read
+    without tensorstore or a zstd library: the read's time and MB/s, the
+    tree's SHA-256 against TRAINED_PWC_SHA256, then the CLI's default restore
+    onto the card and the fused main path with it (`trained_main_path`).
+    Returns (the module, the path's launches)."""
     from fisr_tpu_torch.cli import main as cli
-    from fisr_tpu_torch.convert.orbax_read import ORBAX_ROUTE
-    from fisr_tpu_torch.train.checkpoint import CheckpointManager
+    from fisr_tpu_torch.convert import params
+    from fisr_tpu_torch.convert.ocdbt import OcdbtStore
+    from fisr_tpu_torch.convert.orbax_read import read_orbax_tree, tree_digest
 
-    if not have_module("tensorstore"):
-        # the reader's refusal, on a step directory shaped like orbax's
-        step = os.path.join(tmp, "orbax", "step_1")
-        os.makedirs(step)
-        for name in ("_METADATA", "manifest.ocdbt"):
-            open(os.path.join(step, name), "w").close()
-        try:
-            CheckpointManager(os.path.dirname(step)).restore()
-        except ImportError as e:
-            if ORBAX_ROUTE not in str(e):
-                raise AssertionError(f"orbax ImportError does not name {ORBAX_ROUTE}: {e}")
-        else:
-            raise AssertionError("an orbax step restored without tensorstore")
-        log("[trained] this machine has no tensorstore: the orbax route was not exercised on the "
-            "card (the CPU tests cover it); restoring an orbax step raises the ImportError that "
-            "names the convert.cli --orbax route")
-        return None, None
     root = os.path.dirname(os.path.abspath(__file__))
+    step = os.path.join(root, "checkpoint_dir", "pwcnet", "step_14000")
+    read_orbax_tree(step)  # the page cache warm
+    tree, ms = host_ms(lambda: read_orbax_tree(step), 3)
+    digest = tree_digest(tree)
+    if digest != TRAINED_PWC_SHA256:
+        raise AssertionError(f"checkpoint_dir/pwcnet read with SHA-256 {digest}, not the pinned "
+                             f"{TRAINED_PWC_SHA256}")
+    stored = sum(len(v) for _, v in OcdbtStore(step).items())
+    leaves = list(params.flatten_tree(tree))
+    decoded = sum(a.nbytes for _, a in leaves)
+    log(f"[trained] checkpoint_dir/pwcnet step 14000 read without tensorstore: {len(leaves)} "
+        f"leaves, {stored / 1e6:.2f} MB stored (zstd chunks, .zarray) -> {decoded / 1e6:.2f} MB "
+        f"in {ms:.1f} ms (host clock, median of 3, page cache warm, {os.cpu_count()} CPUs): "
+        f"{stored / ms / 1e3:.0f} MB/s stored, {decoded / ms / 1e3:.0f} MB/s decoded; SHA-256 "
+        f"{digest}, the pinned constant")
     args = cli.parse_args(["--checkpoint_dir", os.path.join(root, "checkpoint_dir")])
     pwc = cli._model(args, "cuda", "pwc")
+    same_weights(pwc, params.pwcnet_from_jax(tree["params"], device="cuda"),
+                 "the CLI's default PWC-Net restore")
     info = trained_main_path(fisr, pwc, folder, tmp, "checkpoint_dir/pwcnet through the CLI's "
                                                      "default restore")
     return pwc, info["launches"]
@@ -2230,13 +2259,9 @@ def main() -> int:
         converted_pwc = timed(phase_weights, fisr, pwc, tmp)
         corpus = timed(phase_corpus, converted_pwc, test_set, train_ms, tmp)
         trained_pwc, launches_trained = timed(phase_trained, fisr, folder, tmp)
-        if trained_pwc is None:
-            prepare_with = (pwc, "deterministic (the TF-oracle generator's, converted)",
-                            converted_pwc)
-        else:
-            prepare_with = (trained_pwc, "trained (checkpoint_dir/pwcnet)", os.path.join(
-                os.path.dirname(os.path.abspath(__file__)), "checkpoint_dir", "pwcnet"))
-        launches_prepare, err_prepare, prepare_pair_ms = timed(phase_prepare, *prepare_with, tmp)
+        launches_prepare, err_prepare, prepare_pair_ms = timed(
+            phase_prepare, trained_pwc, "trained (checkpoint_dir/pwcnet)", os.path.join(
+                os.path.dirname(os.path.abspath(__file__)), "checkpoint_dir", "pwcnet"), tmp)
         multi = timed(phase_multi, fisr, pwc, tmp)
     launches_joint, err_joint, bwd_launches_joint, bwd_err_joint = timed(phase_joint, fisr, pwc)
     launches_pwc_train, backward = pwc_train["launches"], pwc_train["backward"]
@@ -2255,7 +2280,7 @@ def main() -> int:
         "launches_serve": served["launches"],
         # per training step: make_pwc_train_step, make_joint_train_step
         "launches_train": {"pwc_train_step": launches_pwc_train, "joint_step": launches_joint},
-        # the fused main path on the repo's trained PWC-Net (null: no tensorstore here)
+        # the fused main path on the repo's trained PWC-Net (checkpoint_dir/pwcnet)
         "launches_trained": launches_trained,
         # the multi phase on a world of one rank: a round of the frame-parallel
         # stream step, the frame-parallel video step on 2 windows, a

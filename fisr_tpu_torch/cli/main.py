@@ -27,8 +27,8 @@ else from the best step (least validation EPE) of a checkpoint directory:
 `train.pwc_trainer.pwc_fit` writes, and where the repo keeps the JAX
 package's trained PWC-Net; the JAX CLI's `_load_pwc_params`); without any the
 run stops. A checkpoint directory may hold steps of the port (tree.npz) or
-of the JAX package (orbax; reading those needs tensorstore, see
-convert/cli.py --orbax for a machine without it). The JAX CLI's
+of the JAX package (orbax, read by convert/orbax_read.py without
+tensorstore). The JAX CLI's
 --jax_cache_dir has no counterpart (nothing is compiled ahead of a run); every
 other flag of it parses here with its default.
 """

@@ -12,8 +12,8 @@ frame size under the memory check, then serves HTTP (infer/daemon.py:
 /healthz, /v1/info, /metrics, /v1/window, /v1/stream/<id>/frame).
 
 The weight flags and --device are the port's own. The checkpoint directories
-may hold steps of the port or of the JAX package's orbax manager (read with
-tensorstore), so by default the repo's trained <checkpoint_dir>/pwcnet
+may hold steps of the port or of the JAX package's orbax manager (read by
+convert/orbax_read.py), so by default the repo's trained <checkpoint_dir>/pwcnet
 loads as in the JAX CLI. As the JAX serve parser, this one has no TF1 bundle
 flag. --multichip serves from every visible card, one service a card in this
 process (infer/daemon.MultiChipService); with --device cpu it is one CPU

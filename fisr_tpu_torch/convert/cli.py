@@ -12,8 +12,8 @@ pwcnet.ckpt-595000), read without TensorFlow (convert/tensor_bundle.py);
 against a fresh module's key set and shapes (convert/tf_import.py).
 
 `--orbax <step_dir>` is the port's own source: a step the JAX package's
-orbax manager wrote. Reading it needs `tensorstore`; the converted directory
-then restores on a machine without it. Its params are checked the same way.
+orbax manager wrote, read by convert/orbax_read.py (numpy and the host
+runtime's zstd decoder; no tensorstore). Its params are checked the same way.
 
 After conversion, `--phase test` / `--phase FISR_for_video` (cli/main.py)
 restore it like any checkpoint of the port.
@@ -40,7 +40,7 @@ def main(argv=None):
     src.add_argument("--ckpt", help="TF checkpoint prefix (e.g. .../FISRnet-122000)")
     src.add_argument("--npz", help=".npz of {tf_var_name: array}")
     src.add_argument("--orbax", help="step directory of a JAX orbax checkpoint "
-                                     "(e.g. .../pwcnet/step_14000); needs tensorstore")
+                                     "(e.g. .../pwcnet/step_14000)")
     p.add_argument("--out", required=True, help="checkpoint directory of the port")
     p.add_argument("--step", type=int, default=0,
                    help="global step to key the checkpoint on (e.g. 122000)")

@@ -15,6 +15,8 @@
 //     in, summed left to right (the build has -ffp-contract=off, so no FMA):
 //     the bits of each numpy version whose constants it is given.
 //   * a threaded row gather, halo patch extraction, slice-by-8 crc32c.
+//   * a batch of zstd buffers decoded on threads by csrc/zstd.cc's decoder
+//     (compiled into the same library).
 //
 // Links zlib only. Work runs on the host's cores; the encoder takes its
 // thread count (one thread gives zlib.compress's bytes).
@@ -445,6 +447,9 @@ int encode(const uint8_t* img, int64_t h, int64_t w, int threads, std::vector<ui
 
 extern "C" {
 
+int fisr_zstd_decompress(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap,
+                         int64_t* size, char* msg);
+
 // zlib's version string, to compare with the one Python's zlib module uses.
 const char* fisr_zlib_version() { return zlibVersion(); }
 
@@ -539,6 +544,20 @@ int64_t fisr_png_decode_batch(const char* paths, int64_t stride, int64_t n, uint
     if (rc == kOk && (inf[0] != w || inf[1] != h)) rc = kShape;
     codes[i] = rc;
     if (rc != kOk) failed.fetch_add(1);
+  });
+  return failed.load();
+}
+
+// Decode n zstd buffers (srcs[i], ns[i] bytes) into dsts[i], at most caps[i]
+// bytes each, on `threads` threads (0: the host's cores). sizes[i], codes[i]
+// and msgs[256 i ..] hold each one's outcome; returns the number that failed.
+int64_t fisr_zstd_decompress_batch(const uint8_t* const* srcs, const int64_t* ns,
+                                   uint8_t* const* dsts, const int64_t* caps, int64_t n,
+                                   int threads, int64_t* sizes, int32_t* codes, char* msgs) {
+  std::atomic<int64_t> failed(0);
+  parallel_for(n, threads, [&](int64_t i) {
+    codes[i] = fisr_zstd_decompress(srcs[i], ns[i], dsts[i], caps[i], sizes + i, msgs + 256 * i);
+    if (codes[i]) failed.fetch_add(1);
   });
   return failed.load();
 }

@@ -5,8 +5,10 @@ The names are the JAX package's (fisr_tpu/native): `decode_png`,
 `decode_png_batch`, `encode_png` (to a path), `gather_rows`,
 `yuv2rgb_matlab_u8`, `rgb2yuv_matlab_u8`, `extract_patches`, `crc32c`,
 `available`; `decode_png_bytes` and `encode_png_bytes` are the server's
-buffer variants, and `yuv2rgb_ops_u8` is the colour conversion with the
-constants of ops/color.
+buffer variants, `yuv2rgb_ops_u8` is the colour conversion with the
+constants of ops/color, and `zstd_decompress`, `zstd_decompress_batch` and
+`zstd_decompress_bounded` decode zstd frames (csrc/zstd.cc; the orbax
+checkpoints' nodes and chunks).
 
 Two sets of colour constants:
 * `yuv2rgb_matlab_u8` / `rgb2yuv_matlab_u8` use the JAX package's native
@@ -21,7 +23,8 @@ pointer, raises what its plain version raises for bad input, and never falls
 back to the plain version: a failed build raises. ctypes releases the GIL for
 every call. `plain_versions()` maps each name to its plain version (numpy,
 the stdlib codec of data/png_io, the crc loop of convert/tensor_bundle); the
-tests and chip_smoke.py hold every binding against it.
+tests and chip_smoke.py hold every binding against it. The zstd decoder has
+none (see `plain_versions`).
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ from fisr_tpu_torch.native import build
 
 __all__ = ["available", "decode_png", "decode_png_bytes", "decode_png_batch", "encode_png",
            "encode_png_bytes", "gather_rows", "extract_patches", "yuv2rgb_matlab_u8",
-           "rgb2yuv_matlab_u8", "yuv2rgb_ops_u8", "crc32c", "zlib_version", "plain_versions"]
+           "rgb2yuv_matlab_u8", "yuv2rgb_ops_u8", "crc32c", "zstd_decompress",
+           "zstd_decompress_batch", "zstd_decompress_bounded", "zlib_version", "plain_versions"]
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i64p = ctypes.POINTER(ctypes.c_int64)
@@ -56,6 +60,8 @@ _SIGNATURES = {
                                ctypes.c_char_p], _i64),
     "fisr_png_encode": ([_u8p, _i64, _i64, _int, _u8p, _i64, _i64p], _i64),
     "fisr_png_write": ([ctypes.c_char_p, _u8p, _i64, _i64], _int),
+    "fisr_zstd_decompress_batch": ([ctypes.c_void_p, _i64p, ctypes.c_void_p, _i64p, _i64, _int,
+                                    _i64p, _i32p, ctypes.c_char_p], _i64),
 }
 _INFO, _MSG = 8, 256  # int64s of a decode's info, bytes of its message
 _MAX_PIXELS = 178_956_970  # data/png_io._MAX_PIXELS
@@ -96,6 +102,64 @@ def crc32c(data, crc: int = 0) -> int:
     """CRC-32C (Castagnoli) of the bytes-like `data`, continuing `crc`."""
     buf = np.frombuffer(data, np.uint8)
     return int(_lib().fisr_crc32c(buf.ctypes.data, buf.size, crc & 0xFFFFFFFF))
+
+
+# ---- zstd -------------------------------------------------------------------
+
+def _zstd(frames: Sequence, caps, threads: int) -> tuple:
+    """Decode each buffer into at most caps[i] bytes: (arrays of cap bytes,
+    the bytes each decoded to); the first buffer that fails raises."""
+    caps = np.asarray(caps, np.int64).reshape(-1)
+    if len(frames) != caps.size:
+        raise ValueError(f"{len(frames)} frames but {caps.size} sizes")
+    if (caps < 0).any():
+        raise ValueError(f"negative size {int(caps[caps < 0][0])}")
+    srcs = [np.frombuffer(f, np.uint8) for f in frames]
+    outs = [np.empty(int(k), np.uint8) for k in caps]
+    n = len(srcs)
+    src_ptrs = np.array([a.ctypes.data for a in srcs], np.uint64)
+    dst_ptrs = np.array([a.ctypes.data for a in outs], np.uint64)
+    lens = np.array([a.size for a in srcs], np.int64)
+    sizes = np.zeros(n, np.int64)
+    codes = np.zeros(n, np.int32)
+    msgs = ctypes.create_string_buffer(n * _MSG)
+    if _lib().fisr_zstd_decompress_batch(src_ptrs.ctypes.data, lens.ctypes.data_as(_i64p),
+                                         dst_ptrs.ctypes.data, caps.ctypes.data_as(_i64p), n,
+                                         threads, sizes.ctypes.data_as(_i64p),
+                                         codes.ctypes.data_as(_i32p), msgs):
+        i = int(np.flatnonzero(codes)[0])
+        text = msgs.raw[i * _MSG:(i + 1) * _MSG].split(b"\0", 1)[0].decode(errors="replace")
+        raise ValueError(f"zstd: {text}" if n == 1 else f"zstd buffer {i}: {text}")
+    return outs, sizes
+
+
+def zstd_decompress(frame, out_size: int) -> np.ndarray:
+    """The zstd frames in the bytes-like `frame` (RFC 8878, back to back;
+    skippable frames skipped; no dictionaries) decoded into a uint8 array
+    that must come out exactly `out_size` bytes long. A malformed frame, a
+    content checksum or size that does not match, or another decoded size
+    raises ValueError."""
+    return zstd_decompress_batch([frame], [out_size], threads=1)[0]
+
+
+def zstd_decompress_batch(frames: Sequence, out_sizes: Sequence[int],
+                          threads: Optional[int] = None) -> list:
+    """[zstd_decompress(f, n) for f, n in zip(frames, out_sizes)], decoded on
+    `threads` threads (default: the host's cores); the first buffer that
+    fails raises its ValueError."""
+    outs, sizes = _zstd(frames, out_sizes, threads or 0)
+    for i, (out, size) in enumerate(zip(outs, sizes)):
+        if size != out.size:
+            where = "" if len(outs) == 1 else f" buffer {i}:"
+            raise ValueError(f"zstd:{where} the frames decode to {size} bytes, not {out.size}")
+    return outs
+
+
+def zstd_decompress_bounded(frame, max_size: int) -> np.ndarray:
+    """zstd_decompress for a buffer of unknown decoded size (frames without a
+    content size): its bytes, at most `max_size`, else ValueError."""
+    outs, sizes = _zstd([frame], [max_size], 1)
+    return outs[0][:sizes[0]]
 
 
 # ---- gather and patches -----------------------------------------------------
@@ -345,7 +409,13 @@ def encode_png(img: np.ndarray, path) -> None:
 # ---- plain versions ---------------------------------------------------------
 
 def plain_versions() -> dict:
-    """{binding name: its plain version}, each called as the binding is."""
+    """{binding name: its plain version}, each called as the binding is.
+
+    `zstd_decompress` has none: a second full decoder in Python would be
+    code that no path runs. The tests hold it bit-equal to the `zstandard`
+    package (imported there only) on a matrix of frames and on every chunk
+    of checkpoint_dir/pwcnet, and chip_smoke.py holds the orbax read it
+    serves against a SHA-256 of the tree pinned by those tests."""
     from fisr_tpu_torch.convert.tensor_bundle import _crc32c
     from fisr_tpu_torch.data import png_io
     from fisr_tpu_torch.ops import color

@@ -1,8 +1,9 @@
 """Build and load the port's host runtime: `g++` compiles csrc/native.cc
-into a shared library with a plain C interface, loaded with ctypes.
+and csrc/zstd.cc into one shared library with a plain C interface, loaded
+with ctypes.
 
 The library goes to build/fisr_tpu_torch/ under the repository root (listed
-in .gitignore), named by a hash of the source and flags, so an edited source
+in .gitignore), named by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads at once. It is built at first use, never
 at import, under a temporary name renamed into place, so processes that
 build at once do not meet. A failed build raises with the compiler's output:
@@ -23,9 +24,12 @@ from pathlib import Path
 
 from fisr_tpu_torch.kernels.build import BUILD_DIR
 
-__all__ = ["SOURCE", "CXX_FLAGS", "LIBS", "target", "build", "load", "BUILD_LOG"]
+__all__ = ["SOURCE", "EXTRA_SOURCES", "CXX_FLAGS", "LIBS", "target", "build", "load",
+           "BUILD_LOG"]
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "native.cc"
+# compiled into the library beside SOURCE (the zstd decoder)
+EXTRA_SOURCES = (SOURCE.parent / "zstd.cc",)
 # -ffp-contract=off: the colour sums stay separate multiplies and adds, so
 # their bits do not depend on the host's -march (no FMA contraction)
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread", "-ffp-contract=off"]
@@ -46,13 +50,16 @@ def _cxx() -> str:
 
 
 def target(source: Path = SOURCE) -> Path:
-    """The library path for `source` under the current flags."""
-    h = hashlib.sha256(source.read_bytes() + " ".join(CXX_FLAGS + LIBS).encode())
+    """The library path for `source` (with EXTRA_SOURCES) under the current
+    flags."""
+    h = hashlib.sha256(b"".join(p.read_bytes() for p in (source, *EXTRA_SOURCES))
+                       + " ".join(CXX_FLAGS + LIBS).encode())
     return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:12]}.so"
 
 
 def build(source: Path = SOURCE) -> Path:
-    """Compile `source` unless its library is built already; returns the path."""
+    """Compile `source` and EXTRA_SOURCES unless their library is built
+    already; returns the path."""
     out = target(source)
     if out.exists():
         return out
@@ -61,7 +68,8 @@ def build(source: Path = SOURCE) -> Path:
     os.close(fd)
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", tmp, str(source), *LIBS],
+        proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", tmp, str(source),
+                               *map(str, EXTRA_SOURCES), *LIBS],
                               capture_output=True, text=True)
         if proc.returncode:
             raise RuntimeError(f"g++ failed for {source.name} (exit {proc.returncode}):\n"

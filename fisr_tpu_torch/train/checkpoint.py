@@ -17,7 +17,7 @@ in the JAX layout (`params/level_1/enc/level_0/conv_in/w`,
 name and renamed, so an interrupted save never shows as the latest step.
 
 `restore` also reads the steps that the JAX package's orbax manager wrote
-(through convert/orbax_read.py, which needs `tensorstore`), so a directory of
+(through convert/orbax_read.py, without tensorstore), so a directory of
 either package restores here; writing stays `tree.npz`.
 """
 

@@ -5,10 +5,7 @@ card, beside the same path on the TF-oracle generator's PWC-Net.
     python3 scripts/time_torch_trained.py [--pwc_ckpt DIR]
 
 `--pwc_ckpt` is a checkpoint directory that the port's CLI restores (default
-./checkpoint_dir/pwcnet, the JAX package's trained orbax store, which needs
-tensorstore; on a machine without it, pass a directory converted with
-`python -m fisr_tpu_torch.convert.cli --model pwcnet --orbax
-checkpoint_dir/pwcnet/step_14000 --out DIR --step 14000`). Both runs go
+./checkpoint_dir/pwcnet, the JAX package's trained orbax store). Both runs go
 through chip_smoke.trained_main_path on 4 synthetic 1024x1920 frames with the
 full-width deterministic FISRnet, bf16: 15 cost-volume launches each, the
 steady window's (a pair + a window) time and spread, and an f32 flow of a

@@ -142,24 +142,6 @@ def test_orbax_jax_training_checkpoint_restores_and_fills_a_template(tmp_path):
         CheckpointManager(str(tmp_path)).restore(7, item=template)
 
 
-def test_orbax_without_tensorstore_names_the_conversion_route(tmp_path):
-    """Where tensorstore is absent, reading an orbax step (and so the CLI's
-    default restore of the repo's trained tree) raises an ImportError that
-    names `convert.cli --orbax`."""
-    code = (
-        "import sys\n"
-        "sys.modules['tensorstore'] = None\n"
-        "from fisr_tpu_torch.cli import main as cli\n"
-        "try:\n"
-        "    cli._model(cli.parse_args(['--device', 'cpu']), 'cpu', 'pwc')\n"
-        "except ImportError as e:\n"
-        "    print('ImportError:', e)\n")
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
-                          text=True, timeout=300, env=dict(os.environ, PYTHONPATH=ROOT))
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    assert "ImportError:" in proc.stdout and "fisr_tpu_torch.convert.cli --orbax" in proc.stdout
-
-
 # ---- TensorBundle -----------------------------------------------------------------
 
 def test_bundle_reads_the_real_saver_fixture():

@@ -493,10 +493,12 @@ def _port_files():
 
 
 def _forbidden(name: str) -> bool:
-    """JAX and the JAX package; h5py too, which the card's machine lacks
-    (the .mat files go through data/hdf5)."""
+    """JAX and the JAX package; h5py, tensorstore and zstandard too, which the
+    card's machine lacks (the .mat files go through data/hdf5, the orbax
+    steps through convert/ocdbt and the host runtime's zstd decoder)."""
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "optax", "orbax", "flax", "fisr_tpu", "h5py")
+    return top in ("jax", "jaxlib", "optax", "orbax", "flax", "fisr_tpu", "h5py", "tensorstore",
+                   "zstandard")
 
 
 def test_port_sources_import_no_jax():
@@ -531,6 +533,7 @@ def test_port_sources_import_no_jax():
             "fisr_tpu_torch/utils/profiling.py", "fisr_tpu_torch/infer/autotune.py",
             "fisr_tpu_torch/infer/daemon.py", "fisr_tpu_torch/cli/serve.py",
             "fisr_tpu_torch/cli/tune.py", "fisr_tpu_torch/convert/orbax_read.py",
+            "fisr_tpu_torch/convert/ocdbt.py",
             "fisr_tpu_torch/convert/tensor_bundle.py", "fisr_tpu_torch/convert/tf_import.py",
             "fisr_tpu_torch/convert/cli.py", "fisr_tpu_torch/cli/prepare.py",
             "fisr_tpu_torch/cli/build_corpus.py", "fisr_tpu_torch/utils/supervisor.py",
@@ -542,15 +545,17 @@ def test_port_sources_import_no_jax():
 
 def test_port_modules_load_without_jax():
     """Every module of the port imports with no JAX loaded, and with h5py, PIL,
-    triton, tensorstore and ml_dtypes made unimportable (the card's machine
-    has no h5py, no PIL and no tensorstore; this one has no triton)."""
+    triton, tensorstore, zstandard and ml_dtypes made unimportable (the card's
+    machine has no h5py, no PIL, no tensorstore and no zstandard; this one has
+    no triton)."""
     mods = []
     for path in _port_files()[len(SCRIPTS):]:
         rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
         mods.append(rel[: -len(".__init__")] if rel.endswith(".__init__") else rel)
     code = (
         "import importlib, sys\n"
-        "for m in ('h5py', 'PIL', 'triton', 'tensorstore', 'ml_dtypes'): sys.modules[m] = None\n"
+        "for m in ('h5py', 'PIL', 'triton', 'tensorstore', 'zstandard', 'ml_dtypes'):\n"
+        "    sys.modules[m] = None\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'orbax', 'flax', 'fisr_tpu')]\n"
