@@ -1,0 +1,5 @@
+"""The bf16 cost volume's least time over its device time, traced window calls."""
+
+from fisrbench.harness.readers import roofline_pct
+
+read = roofline_pct("cv_fwd")
