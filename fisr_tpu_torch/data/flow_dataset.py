@@ -1,5 +1,6 @@
 """Optical-flow training dataset (image pairs + GT flow; copy of
-fisr_tpu/data/flow_dataset.py, numpy only).
+fisr_tpu/data/flow_dataset.py, numpy only; batch assembly and augmentation
+are timed in the stage spans of utils/profiling).
 
 Rebuild of the tfoptflow dataset layer used to train PWC-Net itself
 (dataset_base.py:103-1104): mode-dependent train/val/test splits with
@@ -25,6 +26,7 @@ import numpy as np
 from fisr_tpu_torch.data import flo as flo_io
 from fisr_tpu_torch.data.augment import AugmentOptions, augment_pair
 from fisr_tpu_torch.native import decode_png
+from fisr_tpu_torch.utils import profiling
 
 __all__ = ["FlowDataset"]
 
@@ -215,7 +217,8 @@ class FlowDataset:
             x = x[:, y0 : y0 + ch, x0 : x0 + cw]
             y = y[y0 : y0 + ch, x0 : x0 + cw]
         if train and self.aug is not None:
-            x, y = augment_pair(x, y, self.aug, self._rng)
+            with profiling.span("data.augment"):
+                x, y = augment_pair(x, y, self.aug, self._rng)
         return x / 255.0, y
 
     def batches(self, batch_size: int, train: bool = True,
@@ -246,9 +249,14 @@ class FlowDataset:
             return {"x": np.stack(xs).astype(np.float32),
                     "y": np.stack(ys).astype(np.float32)}
 
+        # the `data.batch` span: drawing a batch's samples, and stacking them
+        # where that runs on this thread; `data.batches` counts those yielded
         if num_workers <= 0:
             for chunk in chunks:
-                yield assemble(chunk)
+                with profiling.span("data.batch"):
+                    b = assemble(chunk)
+                profiling.count("data.batches")
+                yield b
             return
 
         # _sample mutates self._rng: draw samples serially on submit order,
@@ -260,11 +268,14 @@ class FlowDataset:
         with ThreadPoolExecutor(max_workers=num_workers) as pool:
             pending = deque()
             for chunk in chunks:
-                samples = [self._sample(j, train) for j in chunk]
+                with profiling.span("data.batch"):
+                    samples = [self._sample(j, train) for j in chunk]
                 pending.append(pool.submit(assemble, None, samples))
                 if len(pending) > num_workers + 1:
+                    profiling.count("data.batches")
                     yield pending.popleft().result()
             while pending:
+                profiling.count("data.batches")
                 yield pending.popleft().result()
 
     @property

@@ -35,6 +35,7 @@ every endpoint except /healthz (load-balancer probes stay open), and
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import hmac
 import itertools
@@ -57,6 +58,7 @@ from fisr_tpu_torch.models import fisrnet, pwcnet
 from fisr_tpu_torch.native import decode_png_bytes, encode_png_bytes, yuv2rgb_ops_u8
 from fisr_tpu_torch.ops.color import rgb2yuv_matlab
 from fisr_tpu_torch.ops.conv import F32, Policy
+from fisr_tpu_torch.utils import profiling
 from fisr_tpu_torch.utils.profiling import assert_fits_hbm
 
 __all__ = ["pack_frames", "unpack_frames", "FISRService", "MultiChipService", "make_server"]
@@ -111,6 +113,19 @@ class _StreamState:
         self.prev2 = None   # frame k-2 [1, h, w, 3] on the device
         self.prev1 = None   # frame k-1
         self.pair = None    # (flows, warps) of (k-2, k-1)
+
+
+def _stage_lines() -> List[str]:
+    """Prometheus text of the `serve.*` stage spans of this process (no chip
+    label: one recorder a process)."""
+    spans = profiling.totals()["spans"]
+    stages = sorted(k for k in spans if k.startswith("serve."))
+    if not stages:
+        return []
+    return (["# TYPE fisr_stage_seconds_total counter"]
+            + [f'fisr_stage_seconds_total{{stage="{k}"}} {spans[k][1]!r}' for k in stages]
+            + ["# TYPE fisr_stage_calls_total counter"]
+            + [f'fisr_stage_calls_total{{stage="{k}"}} {spans[k][0]}' for k in stages])
 
 
 class FISRService:
@@ -175,6 +190,16 @@ class FISRService:
 
     # ---- helpers ----
 
+    @contextlib.contextmanager
+    def _locked(self):
+        """`_lock`, its wait timed as the `serve.lock_wait` span."""
+        with profiling.span("serve.lock_wait"):
+            self._lock.acquire()
+        try:
+            yield
+        finally:
+            self._lock.release()
+
     @staticmethod
     def _quant(pred: torch.Tensor) -> torch.Tensor:
         """[0, 1] -> u8 on the device: round half to even (as jnp.rint), clip."""
@@ -216,7 +241,7 @@ class FISRService:
         """Isolated 3-frame window -> 3 output frames (the fused step)."""
         if len(frames) != 3:
             raise ValueError(f"window needs exactly 3 frames, got {len(frames)}")
-        with self._lock, torch.inference_mode(), f32_scope(self.policy):
+        with self._locked(), torch.inference_mode(), f32_scope(self.policy):
             stack = torch.stack([self._to_device(f)[0] for f in frames])[None]
             pred = self._window_step(self.fisr_params, self.pwc_params, stack)
             out = self._window_out_to_u8(pred)
@@ -230,7 +255,7 @@ class FISRService:
         (k-2, k-1, k) that reuses the cached (k-2, k-1) pair, the steady form
         of run_video_pipeline's fused loop.
         """
-        with self._lock, torch.inference_mode(), f32_scope(self.policy):
+        with self._locked(), torch.inference_mode(), f32_scope(self.policy):
             st = self._streams.get(stream_id)
             if st is None:
                 st = self._streams[stream_id] = _StreamState()
@@ -267,7 +292,7 @@ class FISRService:
             lines.append(f"{name} {v}")
         lines.append("# TYPE fisr_active_streams gauge")
         lines.append(f"fisr_active_streams {len(self._streams)}")
-        return "\n".join(lines) + "\n"
+        return "\n".join(lines + _stage_lines()) + "\n"
 
 
 def _on(model: torch.nn.Module, device: torch.device) -> torch.nn.Module:
@@ -340,7 +365,7 @@ class MultiChipService:
         lines.append("# TYPE fisr_active_streams gauge")
         for i, s in enumerate(self.services):
             lines.append(f'fisr_active_streams{{chip="{i}"}} {len(s._streams)}')
-        return "\n".join(lines) + "\n"
+        return "\n".join(lines + _stage_lines()) + "\n"
 
 
 # --------------------------------------------------------------------------
@@ -371,6 +396,12 @@ def make_server(service, host: str = "127.0.0.1", port: int = 8417,
     `Authorization: Bearer <token>` (constant-time compare); /healthz stays
     open so load-balancer probes need no secret. `max_request_bytes` bounds
     POST bodies: larger requests get 413 before the body is read.
+
+    Each POST is timed in stage spans (utils/profiling): `serve.read` (the
+    body), `serve.unpack` and `serve.pack` (the PNG codec) and `serve.send`
+    (the response); the service adds `serve.lock_wait`, and each window's
+    frames sent count one `serve.windows`. /metrics exports the spans'
+    totals.
     """
 
     class Handler(BaseHTTPRequestHandler):
@@ -414,12 +445,15 @@ def make_server(service, host: str = "127.0.0.1", port: int = 8417,
             self.wfile.write(body)
 
         def _frames(self, frames: List[np.ndarray]):
-            body = pack_frames(frames)
-            self.send_response(200)
-            self.send_header("Content-Type", CONTENT_TYPE)
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
+            with profiling.span("serve.pack"):
+                body = pack_frames(frames)
+            with profiling.span("serve.send"):
+                self.send_response(200)
+                self.send_header("Content-Type", CONTENT_TYPE)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+            profiling.count("serve.windows")
 
         def _colorspace(self) -> str:
             q = self.path.split("?", 1)
@@ -461,7 +495,11 @@ def make_server(service, host: str = "127.0.0.1", port: int = 8417,
                                      f"exceeds limit {max_request_bytes}"})
                     self.close_connection = True
                     return
-                frames = _yuv_from(unpack_frames(self.rfile.read(n)), cs)
+                with profiling.span("serve.read"):
+                    body = self.rfile.read(n)
+                with profiling.span("serve.unpack"):
+                    frames = unpack_frames(body)
+                frames = _yuv_from(frames, cs)
                 if path == "/v1/window":
                     self._frames(_yuv_to(service.window(frames), cs))
                     return

@@ -43,6 +43,7 @@ from fisr_tpu_torch.ops.color import rgb2yuv_matlab, yuv2rgb_matlab
 from fisr_tpu_torch.ops.conv import F32, Policy
 from fisr_tpu_torch.ops.resize import resize_tf1, upsample2x_bilinear
 from fisr_tpu_torch.ops.warp import dense_image_warp
+from fisr_tpu_torch.utils import profiling
 
 __all__ = ["make_flow_fn", "make_warp_fn", "make_pair_fn", "make_fisr_window_fn",
            "make_fused_video_step", "resolve_fisr_grid", "resolve_fisr_plan",
@@ -263,7 +264,8 @@ def run_video_pipeline(fisr_model: fisrnet.FISRnet, pwc_model: pwcnet.PWCNet,
     out_folder = out_folder or os.path.join(frame_folder, "FISR_frames")
     os.makedirs(out_folder, exist_ok=True)
 
-    frames = decode_png_batch(paths)  # YUV u8 [n, H, W, 3], decoded on threads
+    with profiling.span("video.decode"):
+        frames = decode_png_batch(paths)  # YUV u8 [n, H, W, 3], decoded on threads
     digits = math.ceil(math.log10(2 * (n - 1)))
     out_paths, writes = [], []
 
@@ -293,16 +295,25 @@ def run_video_pipeline(fisr_model: fisrnet.FISRnet, pwc_model: pwcnet.PWCNet,
         else:
             _staged_windows(fisr_model, pwc_model, frames, emit, frame_folder, grid, boundary,
                             policy, write_artifacts, flow_upscale, dev, verbose)
-        for fut in writes:
-            fut.result()
+        with profiling.span("video.flush"):
+            for fut in writes:
+                fut.result()
     return out_paths
 
 
 def _write_frame(yuv: np.ndarray, path: str, rgb: bool) -> None:
     """One output PNG of a YUV u8 frame, as RGB (ops/color's constants) or as
-    it is: the host runtime's colour and threaded encoder, then the file."""
-    png = encode_png_bytes(yuv2rgb_ops_u8(yuv) if rgb else yuv)
+    it is: the host runtime's colour and threaded encoder, then the file.
+    Timed in the `video.colour` and `video.encode` spans; each RGB file
+    written counts one `video.frames`."""
+    if rgb:
+        with profiling.span("video.colour"):
+            yuv = yuv2rgb_ops_u8(yuv)
+    with profiling.span("video.encode"):
+        png = encode_png_bytes(yuv)
     _write_file(png, path)
+    if rgb:
+        profiling.count("video.frames")
 
 
 def _write_file(data: bytes, path: str) -> None:

@@ -1,28 +1,146 @@
 """Tracing and profiling hooks (port of fisr_tpu/utils/profiling.py).
 
-* `trace(name)`           - wall-clock scope timer that synchronises the
-                            device work it was given before reading the clock;
-* `device_trace(logdir)`  - a torch.profiler trace of the scope into `logdir`
+* `span(name)`            - a stage span: its wall time and one call go into
+                            a process-wide total under `name`; while a torch
+                            profiler collects it is also a
+                            `torch.profiler.record_function`, so it shows on
+                            the device trace's own clock;
+* `count(name, n=1)`      - a process-wide counter;
+* `totals()`              - a copy of the spans' and counters' totals;
+* `device_trace(logdir)`  - a torch.profiler trace of the scope, every
+                            thread's host events included, into `logdir`
                             (Chrome trace JSON, viewable in TensorBoard);
-* `StepTimer`             - steps/s and an EMA for training loops;
-* `device_memory_stats()` - memory in use, peak and total per CUDA device;
 * `assert_fits_hbm`       - a pre-flight memory check that raises an
                             actionable error instead of an allocator failure
                             on the first real request.
+
+The recorder is exact under threads: writer, handler and pool threads all
+record into it, each into totals of its own that `totals()` sums, and a
+thread's totals are folded into those of ended threads when it ends. While
+no profiler collects, a span costs a flag read, two clock reads and an add
+without a lock, and never calls into the profiler.
+
+A design rule: a span on a thread that dispatches device work does not
+enclose torch operations. The benchmark labels a device idle gap with the
+outermost host operation at its middle, so a span around dispatch would
+replace the `aten::` labels under it with a coarser one. Spans mark host
+stages (PNG decode and encode, colour, batch assembly, lock waits, socket
+reads and writes) and the waits between them.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
-from typing import Dict, Optional
+import itertools
+import threading
+from time import perf_counter_ns
+from typing import Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from fisr_tpu_torch.device import resolve_device
 
-__all__ = ["trace", "device_trace", "StepTimer", "device_memory_stats", "sync",
-           "assert_fits_hbm", "check_memory_budget"]
+__all__ = ["span", "count", "totals", "device_trace", "sync", "assert_fits_hbm",
+           "check_memory_budget"]
+
+# Each thread writes only its own {name: (calls, ns)} and {name: n}, replacing
+# a tuple whole, so a reader on another thread sees no half-made update.
+# `_lock` guards `_live` (each live thread's pair) and `_ended`.
+_lock = threading.Lock()
+_live = {}
+_ended = ({}, {})
+_here = threading.local()
+_keys = itertools.count()
+
+
+def _add(spans: dict, counters: dict, into: tuple) -> None:
+    for k, (c, ns) in spans.items():
+        c0, ns0 = into[0].get(k, (0, 0))
+        into[0][k] = (c0 + c, ns0 + ns)
+    for k, n in counters.items():
+        into[1][k] = into[1].get(k, 0) + n
+
+
+class _Owner:
+    """Held in one thread's local storage alone: when the thread ends and its
+    storage is dropped, the thread's totals fold into `_ended`."""
+
+    __slots__ = ("key",)
+
+    def __init__(self, key: int):
+        self.key = key
+
+    # bound here: at interpreter exit the module's globals may be gone first
+    def __del__(self, lock=_lock, live=_live, ended=_ended, add=_add):
+        with lock:
+            add(*live.pop(self.key), ended)
+
+
+def _enrol() -> tuple:
+    """This thread's (spans, counters), made on its first record."""
+    mine = ({}, {})
+    key = next(_keys)
+    with _lock:
+        _live[key] = mine
+    _here.owner = _Owner(key)
+    _here.spans, _here.counters = mine
+    return mine
+
+
+class span:
+    """`with span("video.encode"): ...` adds the block's wall time and one
+    call to the total under the name; see the module docstring."""
+
+    __slots__ = ("name", "_t0", "_rf")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        # torch's own flag for fast checks: set while a profiler collects;
+        # reading it calls nothing in the profiler
+        if _autograd_profiler._is_profiler_enabled:
+            self._rf = torch.profiler.record_function(self.name)
+            self._rf.__enter__()
+        else:
+            self._rf = None
+        self._t0 = perf_counter_ns()
+        return self
+
+    def __exit__(self, typ, value, tb):
+        dt = perf_counter_ns() - self._t0
+        if self._rf is not None:
+            self._rf.__exit__(typ, value, tb)
+        try:
+            mine = _here.spans
+        except AttributeError:
+            mine = _enrol()[0]
+        c = mine.get(self.name)
+        mine[self.name] = (1, dt) if c is None else (c[0] + 1, c[1] + dt)
+        return False
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the process-wide counter `name`."""
+    try:
+        mine = _here.counters
+    except AttributeError:
+        mine = _enrol()[1]
+    mine[name] = mine.get(name, 0) + n
+
+
+def totals() -> dict:
+    """{"spans": {name: (calls, seconds)}, "counters": {name: n}}: a copy of
+    what every thread has recorded."""
+    out = ({}, {})
+    with _lock:
+        # dict() of a dict copies it in one step, so a thread adding a name
+        # meanwhile cannot break the copy
+        for spans, counters in [_ended, *_live.values()]:
+            _add(dict(spans), dict(counters), out)
+    return {"spans": {k: (c, ns * 1e-9) for k, (c, ns) in out[0].items()},
+            "counters": out[1]}
 
 
 def _over_budget(what: str, need: str, budget: int, limit: int, margin: float) -> RuntimeError:
@@ -106,72 +224,17 @@ def sync(x=None) -> None:
 
 
 @contextlib.contextmanager
-def trace(name: str, result_holder: Optional[dict] = None, sync_on=None,
-          verbose: bool = True):
-    t0 = time.perf_counter()
-    yield
-    sync(sync_on)
-    dt = time.perf_counter() - t0
-    if result_holder is not None:
-        result_holder[name] = dt
-    if verbose:
-        print(f"[trace] {name}: {dt * 1e3:.2f} ms", flush=True)
-
-
-@contextlib.contextmanager
 def device_trace(logdir: str):
     """Capture a torch.profiler trace (host, and the card where there is one)
-    into `logdir`."""
+    into `logdir`. Every thread's host events are recorded (the profiler's
+    experimental `profile_all_threads`), so the stage spans of writer and
+    handler threads show beside the kernels."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(
             activities=activities,
-            on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir)):
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir),
+            experimental_config=torch._C._profiler._ExperimentalConfig(
+                profile_all_threads=True)):
         yield
-
-
-class StepTimer:
-    """Throughput bookkeeping for training loops."""
-
-    def __init__(self, batch_size: int, ema: float = 0.95):
-        self.batch_size = batch_size
-        self.ema = ema
-        self._avg = None
-        self._last = None
-
-    def tick(self) -> None:
-        now = time.perf_counter()
-        if self._last is not None:
-            dt = now - self._last
-            self._avg = dt if self._avg is None else (
-                self.ema * self._avg + (1 - self.ema) * dt)
-        self._last = now
-
-    @property
-    def sec_per_step(self) -> float:
-        return self._avg or float("nan")
-
-    @property
-    def samples_per_sec(self) -> float:
-        return self.batch_size / self._avg if self._avg else float("nan")
-
-    def eta_str(self, steps_left: int) -> str:
-        if not self._avg:
-            return "?"
-        s = int(steps_left * self._avg)
-        return f"{s // 3600:02d}:{s % 3600 // 60:02d}:{s % 60:02d}"
-
-
-def device_memory_stats() -> Dict[str, dict]:
-    """{"cuda:<i>": {"bytes_in_use", "peak_bytes_in_use", "bytes_limit"}} for
-    every CUDA device; empty without one."""
-    out = {}
-    if torch.cuda.is_available():
-        for i in range(torch.cuda.device_count()):
-            out[f"cuda:{i}"] = {
-                "bytes_in_use": torch.cuda.memory_allocated(i),
-                "peak_bytes_in_use": torch.cuda.max_memory_allocated(i),
-                "bytes_limit": torch.cuda.mem_get_info(i)[1],
-            }
-    return out

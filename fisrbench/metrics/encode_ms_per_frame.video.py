@@ -1,0 +1,7 @@
+"""Program span `video.encode` (PNG encode of every RGB and YUV file, on the
+writer threads) in ms an output frame (`video.frames`), over every clip of
+the run."""
+
+from fisrbench.harness.program import ms_per
+
+read = ms_per(("video.encode",), "video.frames")

@@ -18,6 +18,7 @@ import socket
 import subprocess
 import sys
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -36,6 +37,7 @@ from fisr_tpu_torch.cli import serve
 from fisr_tpu_torch.convert import params
 from fisr_tpu_torch.convert.oracle import deterministic_tf_vars
 from fisr_tpu_torch.infer import daemon
+from fisr_tpu_torch.utils import profiling
 from fisr_tpu_torch.infer.daemon import (FISRService, MultiChipService, make_server, pack_frames,
                                          unpack_frames)
 
@@ -253,6 +255,37 @@ def test_metrics_endpoint(url, service):
     assert f"fisr_windows_total {service.stats['windows']}" in text
     assert "fisr_active_streams" in text
     assert service.metrics_text() == text
+
+
+STAGES = ("serve.read", "serve.unpack", "serve.lock_wait", "serve.pack", "serve.send")
+
+
+def test_window_over_http_is_timed_in_stage_spans(url, service):
+    """One /v1/window adds one call to each of its stage spans and one
+    `serve.windows`; /metrics exports the spans' totals with no chip label."""
+    def calls(t, name):
+        return t["spans"].get(name, (0, 0.0))[0]
+
+    before = profiling.totals()
+    code, _, _ = _post(url + "/v1/window", pack_frames(_frames(3, seed=5)))
+    assert code == 200
+    def windows(t):
+        return t["counters"].get("serve.windows", 0)
+
+    deadline = time.monotonic() + 10  # the handler counts the window after the reply
+    while windows(profiling.totals()) == windows(before) and time.monotonic() < deadline:
+        time.sleep(0.005)
+    after = profiling.totals()
+    assert {k: calls(after, k) - calls(before, k) for k in STAGES} == {k: 1 for k in STAGES}
+    assert windows(after) - windows(before) == 1
+    with urllib.request.urlopen(url + "/metrics") as r:
+        text = r.read().decode()
+    assert "# TYPE fisr_stage_seconds_total counter" in text
+    assert "# TYPE fisr_stage_calls_total counter" in text
+    now = profiling.totals()
+    for k in STAGES:
+        assert f'fisr_stage_calls_total{{stage="{k}"}} {calls(now, k)}' in text
+        assert f'fisr_stage_seconds_total{{stage="{k}"}} ' in text
 
 
 def test_health_and_info(url, service):
@@ -475,6 +508,8 @@ def test_multichip_info_and_metrics(multi):
     for i in range(2):
         assert f'fisr_windows_total{{chip="{i}"}}' in text
         assert f'fisr_active_streams{{chip="{i}"}}' in text
+    # one recorder a process: the stage series carry no chip label
+    assert 'fisr_stage_calls_total{stage="serve.lock_wait"}' in text
 
 
 def test_multichip_behind_http(multi):

@@ -224,6 +224,28 @@ def test_flow_dataset_batch_stream_equals_jax(workers):
     assert np.array_equal(va[0]["x"], vb[0]["x"]) and va[0]["x"].shape == (2, 2, 32, 32, 3)
 
 
+@pytest.mark.parametrize("workers", [0, 2])
+def test_flow_dataset_counts_its_batches_and_times_augmentation(workers):
+    """`data.batches` counts the batches yielded, `data.batch` times each
+    one's assembly, and `data.augment` is called once a sample drawn."""
+    from fisr_tpu_torch.utils import profiling
+
+    ds = FlowDataset.synthetic_textured(n=10, h=40, w=40, seed=5, crop_hw=(32, 32),
+                                        aug=augment.AugmentOptions(), val_split=0.2)
+    before = profiling.totals()
+    got = list(ds.batches(2, train=True, epoch_seed=1, num_workers=workers))
+    after = profiling.totals()
+
+    def calls(name):
+        return after["spans"][name][0] - before["spans"].get(name, (0, 0.0))[0]
+
+    assert len(got) == 4
+    assert after["counters"]["data.batches"] - before["counters"].get("data.batches", 0) == 4
+    assert calls("data.batch") == 4
+    assert calls("data.augment") == sum(len(b["x"]) for b in got) == 8
+    assert after["spans"]["data.augment"][1] <= after["spans"]["data.batch"][1]
+
+
 @pytest.mark.parametrize("seed", [0, 3, 7, 11])
 def test_augment_pair_equals_jax(seed):
     rng = np.random.default_rng(seed)

@@ -44,6 +44,7 @@ from fisr_tpu_torch.data.png_io import read_png, write_png
 from fisr_tpu_torch.infer import video
 from fisr_tpu_torch.models import pwcnet
 from fisr_tpu_torch.ops import color
+from fisr_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 SMALL = dict(pyr_lvls=4, flow_pred_lvl=2, search_range=2)
@@ -196,6 +197,29 @@ def test_pipeline_frames_through_the_host_runtime_equal_its_plain_versions(
     for name in names:
         np.testing.assert_array_equal(read_png(tmp_path / "native" / name),
                                       read_png(tmp_path / "plain" / name), err_msg=name)
+
+
+def test_pipeline_times_its_host_stages_and_counts_its_frames(tmp_path, full_pwc_trees):
+    """One fused run adds one `video.decode` and one `video.flush` call, a
+    `video.colour` for each RGB file, a `video.encode` for each file, and a
+    `video.frames` for each RGB file it returns."""
+    ftree, ptree = full_pwc_trees
+    folder = _write_folder(tmp_path / "vid")
+    fisr = params.fisrnet_from_jax(ftree, device="cpu")
+    pwc = params.pwcnet_from_jax(ptree, device="cpu")
+    before = profiling.totals()
+    got = video.run_video_pipeline(fisr, pwc, folder, out_folder=str(tmp_path / "out"),
+                                   fused=True, verbose=False, device="cpu")
+    after = profiling.totals()
+
+    def calls(name):
+        return after["spans"][name][0] - before["spans"].get(name, (0, 0.0))[0]
+
+    frames = len(set(got))
+    assert frames == 5 and len(os.listdir(tmp_path / "out")) == 2 * frames
+    assert after["counters"]["video.frames"] - before["counters"].get("video.frames", 0) == frames
+    assert calls("video.decode") == calls("video.flush") == 1
+    assert calls("video.colour") == frames and calls("video.encode") == 2 * frames
 
 
 def test_staged_pipeline_matches_jax_pipeline(tmp_path, full_pwc_trees):
