@@ -478,6 +478,23 @@ def phase_native(tmp):
         png_io.write_png(fr, paths[-1])
     check("decode_png_batch 6 frames", f"{WINDOW[0]}x{WINDOW[1]}",
           lambda: native.decode_png_batch(paths), lambda: plain["decode_png_batch"](paths))
+    # a flow training sample at pwc_fit's shapes: a 256x448 crop of a 384x512
+    # pair, without augmentation and under plans that take every branch
+    from fisr_tpu_torch.data.augment import AugmentPlan
+
+    rng = np.random.default_rng(5)
+    pair = rng.integers(0, 256, (2, 384, 512, 3), dtype=np.uint8)
+    flow = rng.normal(0, 4, (384, 512, 2)).astype(np.float32)
+    for plan in (None, AugmentPlan(True, True, (-12, 9), 1.04),
+                 AugmentPlan(False, True, (5, 0), 0.96)):
+        outs = [(np.empty((2, 256, 448, 3), np.float32), np.empty((256, 448, 2), np.float32))
+                for _ in range(2)]
+        check(f"flow_sample {plan}", "256x448 of 384x512",
+              lambda: native.flow_sample(pair, flow, (61, 30), (256, 448), plan, *outs[0])
+              or outs[0],
+              lambda: plain["flow_sample"](pair, flow, (61, 30), (256, 448), plan, *outs[1])
+              or outs[1],
+              lambda a, b: all(np.array_equal(u, v) for u, v in zip(a, b)))
     # the zstd decoder on the trained PWC-Net's chunks (an orbax store): no
     # plain version; phase_trained holds the whole read against a pinned digest
     from fisr_tpu_torch.convert.ocdbt import OcdbtStore

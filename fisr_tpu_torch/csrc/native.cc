@@ -15,6 +15,10 @@
 //     in, summed left to right (the build has -ffp-contract=off, so no FMA):
 //     the bits of each numpy version whose constants it is given.
 //   * a threaded row gather, halo patch extraction, slice-by-8 crc32c.
+//   * a flow training sample in one pass: crop, flips, shift, resize by a
+//     ratio kept at size, and / 255, read from the u8 pair and f32 flow and
+//     written as f32 (data/augment.apply_plan's bits: its float64 bilinear
+//     expression term for term, rounded to float32 where numpy rounds).
 //   * a batch of zstd buffers decoded on threads by csrc/zstd.cc's decoder
 //     (compiled into the same library).
 //
@@ -26,14 +30,21 @@
 #include <algorithm>
 #include <atomic>
 #include <cerrno>
+#include <cmath>
+#include <condition_variable>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
+#include <exception>
+#include <functional>
+#include <mutex>
 #include <new>
+#include <system_error>
 #include <thread>
 #include <vector>
 
 #include <sys/stat.h>
+#include <unistd.h>
 
 namespace {
 
@@ -61,6 +72,100 @@ void parallel_for(int64_t n, int threads, F fn) {
     });
   for (auto& th : pool) th.join();
 }
+
+// parallel_for on threads kept for the process: the host's cores less one,
+// started at first use (anew in a forked child, which inherits no threads),
+// with the calling thread taking indices too. For passes of a millisecond or
+// two, where starting threads on each call costs as much as the work. One
+// run at a time; a run that throws rethrows its first exception in the
+// caller once every index is done.
+class Pool {
+ public:
+  static void run(int64_t n, const std::function<void(int64_t)>& fn) {
+    static std::mutex make;
+    static Pool* pool = nullptr;  // never freed: its threads live as long as the process
+    Pool* p;
+    {
+      std::lock_guard<std::mutex> lock(make);
+      if (pool == nullptr || pool->pid_ != getpid()) {
+        pool = new Pool();
+        pool->start(resolve_threads(0) - 1);
+      }
+      p = pool;
+    }
+    p->go(n, fn);
+  }
+
+ private:
+  Pool() : pid_(getpid()) {}
+
+  // as many workers as the system lets start, up to `workers`
+  void start(int workers) {
+    for (; workers_ < workers; ++workers_) {
+      try {
+        std::thread([this] { serve(); }).detach();
+      } catch (const std::system_error&) {
+        break;
+      }
+    }
+  }
+
+  void go(int64_t n, const std::function<void(int64_t)>& fn) {
+    std::lock_guard<std::mutex> one_run(run_);
+    {
+      std::lock_guard<std::mutex> lock(mu_);
+      job_ = &fn;
+      n_ = n;
+      next_ = 0;
+      busy_ = workers_;
+      error_ = nullptr;
+      ++round_;
+    }
+    wake_.notify_all();
+    take();
+    std::unique_lock<std::mutex> lock(mu_);
+    done_.wait(lock, [&] { return busy_ == 0; });
+    job_ = nullptr;
+    if (error_) std::rethrow_exception(error_);
+  }
+
+  // indices in turn until none is left
+  void take() {
+    for (int64_t i; (i = next_.fetch_add(1)) < n_;) {
+      try {
+        (*job_)(i);
+      } catch (...) {
+        std::lock_guard<std::mutex> lock(mu_);
+        if (!error_) error_ = std::current_exception();
+      }
+    }
+  }
+
+  void serve() {
+    uint64_t seen = 0;
+    for (;;) {
+      {
+        std::unique_lock<std::mutex> lock(mu_);
+        wake_.wait(lock, [&] { return round_ != seen; });
+        seen = round_;
+      }
+      take();
+      std::lock_guard<std::mutex> lock(mu_);
+      if (--busy_ == 0) done_.notify_one();
+    }
+  }
+
+  const pid_t pid_;
+  int workers_ = 0;
+  std::mutex run_, mu_;
+  std::condition_variable wake_, done_;
+  const std::function<void(int64_t)>* job_ = nullptr;
+  int64_t n_ = 0;
+  std::atomic<int64_t> next_{0};
+  int busy_ = 0;
+  uint64_t round_ = 0;
+  std::exception_ptr error_;
+};
 
 uint32_t be32(const uint8_t* p) {
   return (uint32_t(p[0]) << 24) | (uint32_t(p[1]) << 16) | (uint32_t(p[2]) << 8) | p[3];
@@ -443,6 +548,61 @@ int encode(const uint8_t* img, int64_t h, int64_t w, int threads, std::vector<ui
   return Z_OK;
 }
 
+// ---------------------------------------------------------------------------
+// Flow training sample (data/flow_dataset, data/augment)
+// ---------------------------------------------------------------------------
+
+// One axis of a flow sample's crop: n of the source axis from `origin`,
+// flipped, and frame 2 shifted by `shift`. For crop index p: the source
+// index of frame 1 and the flow (src0) and of frame 2 (src1; -1 where the
+// shift exposes zeros). For output index o: the crop indices of its two taps
+// (a, b) and b's weight w; without a resize both taps are o, with one (n
+// resized to sn and kept at n, augment.scale_keep_size) they and w are
+// _resize_bilinear's double expressions, and a = -1 in the zero pad of a
+// ratio below 1.
+struct Axis {
+  std::vector<int64_t> src0, src1, a, b;
+  std::vector<double> w;
+};
+
+Axis make_axis(int64_t n, int64_t origin, bool flip, int64_t shift, bool scaled, int64_t sn) {
+  Axis ax{std::vector<int64_t>(n), std::vector<int64_t>(n), std::vector<int64_t>(n),
+          std::vector<int64_t>(n), std::vector<double>(n, 0.0)};
+  for (int64_t p = 0; p < n; ++p) {
+    const int64_t q = p - shift;
+    ax.src0[p] = origin + (flip ? n - 1 - p : p);
+    ax.src1[p] = q < 0 || q >= n ? -1 : origin + (flip ? n - 1 - q : q);
+  }
+  const double step = scaled ? double(n) / double(sn) : 1.0;
+  // crop (sn >= n) or pad (sn < n) offset of output index o in the resized axis
+  const int64_t off = !scaled ? 0 : sn >= n ? (sn - n) / 2 : -((n - sn) / 2);
+  for (int64_t o = 0; o < n; ++o) {
+    const int64_t i = o + off;
+    if (!scaled) {
+      ax.a[o] = ax.b[o] = o;
+    } else if (i < 0 || i >= sn) {
+      ax.a[o] = ax.b[o] = -1;
+    } else {
+      double s = (double(i) + 0.5) * step - 0.5;
+      s = s < 0.0 ? 0.0 : (s > double(n - 1) ? double(n - 1) : s);
+      ax.a[o] = static_cast<int64_t>(std::floor(s));
+      ax.b[o] = std::min(ax.a[o] + 1, n - 1);
+      ax.w[o] = s - double(ax.a[o]);
+    }
+  }
+  return ax;
+}
+
+// u8 value i -> float(i) / 255.0f: a frame's `/ 255` without a resize
+const float* u8_unit() {
+  static const std::vector<float> table = [] {
+    std::vector<float> t(256);
+    for (int i = 0; i < 256; ++i) t[i] = float(i) / 255.0f;
+    return t;
+  }();
+  return table.data();
+}
+
 }  // namespace
 
 extern "C" {
@@ -504,6 +664,101 @@ void fisr_color_u8(const uint8_t* in, uint8_t* out, int64_t n_px, const double* 
       }
     }
   });
+}
+
+// One flow training sample: the [ch, cw] crop at (y0, x0) of the u8 pair
+// [2, H, W, 3] and its f32 flow [H, W, 2], flipped (flip_lr, flip_ud), frame
+// 2 shifted by (tx, ty) with zero fill and the flow offset by it (both 0:
+// none), resized by `ratio` to [sh, sw] and kept at [ch, cw] when `scaled`;
+// the frames / 255 into x_out [2, ch, cw, 3], the flow into y_out
+// [ch, cw, 2]. Arguments checked by the caller. One job an output row.
+// Returns 0, or kMemory.
+int fisr_flow_sample(const uint8_t* pair, const float* flow, int64_t H, int64_t W, int64_t y0,
+                     int64_t x0, int64_t ch, int64_t cw, int flip_lr, int flip_ud, int64_t tx,
+                     int64_t ty, int scaled, double ratio, int64_t sh, int64_t sw, float* x_out,
+                     float* y_out) {
+  try {
+    const bool lr = flip_lr != 0, ud = flip_ud != 0, shifted = tx != 0 || ty != 0;
+    const Axis rows = make_axis(ch, y0, ud, ty, scaled != 0, sh);
+    const Axis cols = make_axis(cw, x0, lr, tx, scaled != 0, sw);
+    const float fratio = float(ratio), shift[2] = {float(tx), float(ty)};
+    const bool negate[2] = {lr, ud};
+    const float* unit = u8_unit();
+    // frame t's source row at crop row p (null: zeros), the flow's
+    auto frame_row = [&](int t, int64_t p) -> const uint8_t* {
+      const int64_t s = t ? rows.src1[p] : rows.src0[p];
+      return s < 0 ? nullptr : pair + (t * H + s) * W * 3;
+    };
+    auto flow_row = [&](int64_t p) { return flow + rows.src0[p] * W * 2; };
+    // the flow's component k at crop column p of a source row, flipped and shifted
+    auto flow_at = [&](const float* row, int64_t p, int k) {
+      float v = row[cols.src0[p] * 2 + k];
+      if (negate[k]) v = -v;
+      return shifted ? v + shift[k] : v;
+    };
+    Pool::run(ch, [&](int64_t r) {
+      float* xo[2] = {x_out + r * cw * 3, x_out + (ch + r) * cw * 3};
+      float* yo = y_out + r * cw * 2;
+      if (rows.a[r] < 0) {  // the zero pad of a ratio below 1
+        std::fill(xo[0], xo[0] + cw * 3, 0.0f);
+        std::fill(xo[1], xo[1] + cw * 3, 0.0f);
+        std::fill(yo, yo + cw * 2, 0.0f);
+        return;
+      }
+      if (!scaled) {
+        for (int t = 0; t < 2; ++t) {
+          const uint8_t* row = frame_row(t, r);
+          for (int64_t c = 0; c < cw; ++c) {
+            const int64_t q = t ? cols.src1[c] : cols.src0[c];
+            for (int k = 0; k < 3; ++k)
+              xo[t][c * 3 + k] = row && q >= 0 ? unit[row[q * 3 + k]] : 0.0f;
+          }
+        }
+        const float* g = flow_row(r);
+        for (int64_t c = 0; c < cw; ++c)
+          for (int k = 0; k < 2; ++k) yo[c * 2 + k] = flow_at(g, c, k);
+        return;
+      }
+      // _resize_bilinear's sum at output (r, c), in its order:
+      //   ((A (1 - wy)) (1 - wx) + (B (1 - wy)) wx) + (C wy) (1 - wx) + (D wy) wx
+      // with A, B on crop row a and C, D on row b: ua and ub hold those rows'
+      // values times (1 - wy) and wy at every crop column, in double.
+      const int64_t pa = rows.a[r], pb = rows.b[r];
+      const double wy = rows.w[r], omy = 1.0 - wy;
+      std::vector<double> ua(cw * 3), ub(cw * 3);
+      auto sum = [&](int64_t c, int64_t n, int k) {
+        const int64_t a = cols.a[c] * n + k, b = cols.b[c] * n + k;
+        const double wx = cols.w[c], omx = 1.0 - wx;
+        return ((ua[a] * omx + ua[b] * wx) + ub[a] * omx) + ub[b] * wx;
+      };
+      for (int t = 0; t < 2; ++t) {
+        const uint8_t *ra = frame_row(t, pa), *rb = frame_row(t, pb);
+        for (int64_t p = 0; p < cw; ++p) {
+          const int64_t q = t ? cols.src1[p] : cols.src0[p];
+          for (int k = 0; k < 3; ++k) {
+            ua[p * 3 + k] = double(ra && q >= 0 ? ra[q * 3 + k] : 0) * omy;
+            ub[p * 3 + k] = double(rb && q >= 0 ? rb[q * 3 + k] : 0) * wy;
+          }
+        }
+        for (int64_t c = 0; c < cw; ++c)
+          for (int k = 0; k < 3; ++k)
+            xo[t][c * 3 + k] = cols.a[c] < 0 ? 0.0f : float(sum(c, 3, k));
+        for (int64_t i = 0; i < cw * 3; ++i) xo[t][i] = xo[t][i] / 255.0f;  // vectorised
+      }
+      const float *ga = flow_row(pa), *gb = flow_row(pb);
+      for (int64_t p = 0; p < cw; ++p)
+        for (int k = 0; k < 2; ++k) {
+          ua[p * 2 + k] = double(flow_at(ga, p, k)) * omy;
+          ub[p * 2 + k] = double(flow_at(gb, p, k)) * wy;
+        }
+      for (int64_t c = 0; c < cw; ++c)
+        for (int k = 0; k < 2; ++k)
+          yo[c * 2 + k] = cols.a[c] < 0 ? 0.0f : float(sum(c, 2, k)) * fratio;
+    });
+    return kOk;
+  } catch (const std::exception&) {
+    return kMemory;
+  }
 }
 
 // Decode a PNG held in memory into out (cap bytes). Status codes above.

@@ -15,17 +15,23 @@ reference): bilinear resize by `ratio` with half-pixel centers, then
 center-crop (ratio > 1) or center zero-pad (ratio < 1) back to the input
 size, so augmented samples keep their shape.
 
-Implemented with numpy on the host (the reference augments on CPU too);
-deterministic under a seeded Generator (reference seed 1969).
+The draws and the work are apart: `plan_augment` draws one sample's
+`AugmentPlan` from a seeded Generator (reference seed 1969), and
+`apply_plan` carries it out with numpy. `augment_pair` is the two in turn,
+the plain version. FlowDataset hands the plan to the host runtime's fused
+pass (native/bindings.flow_sample, csrc/native.cc), which gives apply_plan's
+bits on the host's cores.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
-__all__ = ["AugmentOptions", "augment_pair", "scale_keep_size"]
+__all__ = ["AugmentOptions", "AugmentPlan", "plan_augment", "apply_plan", "augment_pair",
+           "scale_keep_size", "scaled_size"]
 
 
 @dataclasses.dataclass
@@ -56,6 +62,11 @@ def _resize_bilinear(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     return out[..., 0] if img.ndim == 2 else out
 
 
+def scaled_size(h: int, w: int, ratio: float) -> tuple:
+    """The size an [h, w] image takes when resized by `ratio`."""
+    return int(round(h * ratio)), int(round(w * ratio))
+
+
 def scale_keep_size(img: np.ndarray, ratio: float) -> np.ndarray:
     """Resize by `ratio`, then center-crop / center-zero-pad to input size.
 
@@ -63,7 +74,7 @@ def scale_keep_size(img: np.ndarray, ratio: float) -> np.ndarray:
     (reference augment.py:118-121). img: [H, W] or [H, W, C].
     """
     h, w = img.shape[:2]
-    sh, sw = int(round(h * ratio)), int(round(w * ratio))
+    sh, sw = scaled_size(h, w, ratio)
     scaled = _resize_bilinear(img.astype(np.float64), sh, sw).astype(img.dtype)
     if ratio >= 1.0:
         y0, x0 = (sh - h) // 2, (sw - w) // 2
@@ -74,44 +85,78 @@ def scale_keep_size(img: np.ndarray, ratio: float) -> np.ndarray:
     return out
 
 
-def augment_pair(x: np.ndarray, y: np.ndarray, opts: AugmentOptions,
-                 rng: np.random.Generator):
-    """x: [2, H, W, 3] frame pair; y: [H, W, 2] flow (u, v). Returns new
-    (x, y)."""
-    x = x.copy()
-    y = y.copy()
-    h, w = y.shape[:2]
-    if rng.uniform() < opts.fliplr:
-        x = x[:, :, ::-1]
-        y = y[:, ::-1]
-        y[..., 0] = -y[..., 0]
-    if rng.uniform() < opts.flipud:
-        x = x[:, ::-1]
-        y = y[::-1]
-        y[..., 1] = -y[..., 1]
+@dataclasses.dataclass(frozen=True)
+class AugmentPlan:
+    """One sample's augmentation, as drawn: flips; frame 2 shifted by
+    `shift` (tx, ty) with zero fill and the flow offset by it, (0, 0) for
+    none; a resize by `ratio` (to `scaled_size`) kept at the input size,
+    None for none."""
+    fliplr: bool = False
+    flipud: bool = False
+    shift: tuple = (0, 0)
+    ratio: Optional[float] = None
+
+
+def plan_augment(opts: AugmentOptions, rng: np.random.Generator, h: int,
+                 w: int) -> AugmentPlan:
+    """Draw the plan of one [h, w] sample from `rng`, in the order the
+    reference's Augmenter draws (augment.py:56-125)."""
+    fliplr = bool(rng.uniform() < opts.fliplr)
+    flipud = bool(rng.uniform() < opts.flipud)
+    shift = (0, 0)
     if rng.uniform() < opts.translate_prob:
         tx = int(rng.uniform(-opts.translate_frac, opts.translate_frac) * w)
         ty = int(rng.uniform(-opts.translate_frac, opts.translate_frac) * h)
-        if tx or ty:
-            # shift frame 2 by (tx, ty) with ZERO fill at the exposed
-            # borders — the exact semantics of the reference's
-            # cv2.warpAffine(translation) call (augment.py:108-111, default
-            # BORDER_CONSTANT 0); flow gains the same offset. Pinned
-            # against the reference's own Augmenter in
-            # tests/test_augment_oracle.py.
-            x2 = np.zeros_like(x[1])
-            ys = slice(max(ty, 0), h + min(ty, 0))
-            xs = slice(max(tx, 0), w + min(tx, 0))
-            ys_src = slice(max(-ty, 0), h + min(-ty, 0))
-            xs_src = slice(max(-tx, 0), w + min(-tx, 0))
-            x2[ys, xs] = x[1][ys_src, xs_src]
-            x[1] = x2
-            y = y + np.array([tx, ty], y.dtype)
+        shift = (tx, ty)
+    ratio = None
     if rng.uniform() < opts.scale_prob:
         ratio = float(rng.uniform(1.0 - opts.scale_frac, 1.0 + opts.scale_frac))
+    return AugmentPlan(fliplr, flipud, shift, ratio)
+
+
+def apply_plan(x: np.ndarray, y: np.ndarray, plan: AugmentPlan):
+    """x: [2, H, W, 3] frame pair; y: [H, W, 2] flow (u, v). Returns new
+    (x, y), augmented as `plan` says."""
+    x = x.copy()
+    y = y.copy()
+    h, w = y.shape[:2]
+    if plan.fliplr:
+        x = x[:, :, ::-1]
+        y = y[:, ::-1]
+        y[..., 0] = -y[..., 0]
+    if plan.flipud:
+        x = x[:, ::-1]
+        y = y[::-1]
+        y[..., 1] = -y[..., 1]
+    tx, ty = plan.shift
+    if tx or ty:
+        # shift frame 2 by (tx, ty) with ZERO fill at the exposed
+        # borders — the exact semantics of the reference's
+        # cv2.warpAffine(translation) call (augment.py:108-111, default
+        # BORDER_CONSTANT 0); flow gains the same offset. Pinned
+        # against the reference's own Augmenter in
+        # tests/test_augment_oracle.py.
+        x2 = np.zeros_like(x[1])
+        ys = slice(max(ty, 0), h + min(ty, 0))
+        xs = slice(max(tx, 0), w + min(tx, 0))
+        ys_src = slice(max(-ty, 0), h + min(-ty, 0))
+        xs_src = slice(max(-tx, 0), w + min(-tx, 0))
+        x2[ys, xs] = x[1][ys_src, xs_src]
+        x[1] = x2
+        y = y + np.array([tx, ty], y.dtype)
+    if plan.ratio is not None:
+        ratio = plan.ratio
         # both frames + the flow field resize together; flow VECTORS scale
         # by the same ratio (reference augment.py:113-122)
         x = np.stack([scale_keep_size(x[0], ratio),
                       scale_keep_size(x[1], ratio)])
         y = scale_keep_size(y, ratio) * np.asarray(ratio, y.dtype)
     return x, y
+
+
+def augment_pair(x: np.ndarray, y: np.ndarray, opts: AugmentOptions,
+                 rng: np.random.Generator):
+    """x: [2, H, W, 3] frame pair; y: [H, W, 2] flow (u, v). Returns new
+    (x, y): `plan_augment` then `apply_plan`."""
+    h, w = y.shape[:2]
+    return apply_plan(x, y, plan_augment(opts, rng, h, w))

@@ -1,13 +1,15 @@
-"""Optical-flow training dataset (image pairs + GT flow; copy of
-fisr_tpu/data/flow_dataset.py, numpy only; batch assembly and augmentation
-are timed in the stage spans of utils/profiling).
+"""Optical-flow training dataset (image pairs + GT flow; port of
+fisr_tpu/data/flow_dataset.py; batch assembly and augmentation are timed in
+the stage spans of utils/profiling).
 
 Rebuild of the tfoptflow dataset layer used to train PWC-Net itself
 (dataset_base.py:103-1104): mode-dependent train/val/test splits with
 persisted ID files, random-crop sampling to the training size, augmentation,
 and a batch iterator. The reference fed tf.data through tf.py_func threads;
-here batches are assembled with numpy, optionally on a thread pool, and
-handed to the train step: the equivalent of its `map_and_batch` pipeline.
+here each sample's crop corner and augmentation plan are drawn in Python,
+and the host runtime's fused pass (native.flow_sample, threaded C++) crops,
+augments and scales the sample into its slot of the batch's float32 arrays:
+the equivalent of its `map_and_batch` pipeline, with numpy's bits.
 
 On-disk contract: a folder of samples, each `<id>_img1.png`, `<id>_img2.png`
 (RGB) and `<id>_flow.flo` (Middlebury). `FlowDataset.synthetic()` builds an
@@ -16,6 +18,7 @@ in-memory corpus for tests.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import glob
 import os
@@ -24,8 +27,8 @@ from typing import Iterator, Optional
 import numpy as np
 
 from fisr_tpu_torch.data import flo as flo_io
-from fisr_tpu_torch.data.augment import AugmentOptions, augment_pair
-from fisr_tpu_torch.native import decode_png
+from fisr_tpu_torch.data.augment import AugmentOptions, plan_augment
+from fisr_tpu_torch.native import decode_png, flow_sample
 from fisr_tpu_torch.utils import profiling
 
 __all__ = ["FlowDataset"]
@@ -206,29 +209,50 @@ class FlowDataset:
         return cls(pairs, flows, **kw)
 
     # -- iteration ---------------------------------------------------------
-    def _sample(self, idx: int, train: bool):
-        x = self.pairs[idx].astype(np.float32)
-        y = self.flows[idx]
-        if self.crop_hw is not None:
-            ch, cw = self.crop_hw
-            h, w = y.shape[:2]
-            y0 = self._rng.integers(0, h - ch + 1) if train else (h - ch) // 2
-            x0 = self._rng.integers(0, w - cw + 1) if train else (w - cw) // 2
-            x = x[:, y0 : y0 + ch, x0 : x0 + cw]
-            y = y[y0 : y0 + ch, x0 : x0 + cw]
-        if train and self.aug is not None:
-            with profiling.span("data.augment"):
-                x, y = augment_pair(x, y, self.aug, self._rng)
-        return x / 255.0, y
+    def _draw(self, train: bool):
+        """One sample's crop corner and augmentation plan (None: none), drawn
+        from the sample RNG in the reference's order: crop row, crop column,
+        then the Augmenter's draws."""
+        h, w = self.flows.shape[1:3]
+        ch, cw = self.crop_hw or (h, w)
+        if self.crop_hw is None:
+            corner = (0, 0)
+        elif train:
+            y0 = self._rng.integers(0, h - ch + 1)
+            corner = (y0, self._rng.integers(0, w - cw + 1))
+        else:
+            corner = ((h - ch) // 2, (w - cw) // 2)
+        plan = plan_augment(self.aug, self._rng, ch, cw) if train and self.aug is not None \
+            else None
+        return corner, plan
+
+    def _assemble(self, batch_idxs, train: bool) -> dict:
+        """The batch of `batch_idxs`: each sample drawn in turn, then cropped,
+        augmented and scaled by the fused pass straight into its slot."""
+        h, w = self.flows.shape[1:3]
+        ch, cw = self.crop_hw or (h, w)
+        x = np.empty((len(batch_idxs), 2, ch, cw, 3), np.float32)
+        y = np.empty((len(batch_idxs), ch, cw, 2), np.float32)
+        for k, j in enumerate(batch_idxs):
+            corner, plan = self._draw(train)
+            args = (self.pairs[j], self.flows[j], corner, (ch, cw), plan, x[k], y[k])
+            if plan is None:
+                flow_sample(*args)
+            else:
+                with profiling.span("data.augment"):
+                    flow_sample(*args)
+            profiling.count("data.fused")
+        return {"x": x, "y": y}
 
     def batches(self, batch_size: int, train: bool = True,
                 epoch_seed: int = 0, num_workers: int = 0) -> Iterator[dict]:
-        """Batch iterator; num_workers > 0 assembles upcoming batches on a
-        thread pool with a small lookahead — the analog of the reference's
+        """Batch iterator; num_workers > 0 keeps num_workers + 1 assembled
+        batches ahead of the one yielded — the analog of the reference's
         threaded tf.data feeder (dataset_base.py:1032-1083, tf.py_func
-        under map_and_batch). Augmentation RNG draws happen on the
-        submitting thread order, so worker count does not change the
-        sample stream.
+        under map_and_batch), whose per-sample work runs here on the host's
+        cores inside each sample's fused pass. Draws and work run in
+        submission order on this thread, so worker count does not change
+        the sample stream.
         """
         idxs = self._train_idx if train else self._val_idx
         if train:
@@ -244,39 +268,19 @@ class FlowDataset:
         if not train and tail < len(idxs):
             chunks.append(idxs[tail:])
 
-        def assemble(batch_idxs, samples=None):
-            xs, ys = zip(*(samples or (self._sample(j, train) for j in batch_idxs)))
-            return {"x": np.stack(xs).astype(np.float32),
-                    "y": np.stack(ys).astype(np.float32)}
-
-        # the `data.batch` span: drawing a batch's samples, and stacking them
-        # where that runs on this thread; `data.batches` counts those yielded
-        if num_workers <= 0:
-            for chunk in chunks:
-                with profiling.span("data.batch"):
-                    b = assemble(chunk)
+        # the `data.batch` span: drawing and assembling a batch (main, in
+        # `next(feed)`); `data.batches` counts those yielded
+        ahead = collections.deque()
+        keep = num_workers + 1 if num_workers > 0 else 0
+        for chunk in chunks:
+            with profiling.span("data.batch"):
+                ahead.append(self._assemble(chunk, train))
+            while len(ahead) > keep:
                 profiling.count("data.batches")
-                yield b
-            return
-
-        # _sample mutates self._rng: draw samples serially on submit order,
-        # stack on the pool (the expensive part for big batches), keep a
-        # bounded lookahead so memory stays ~2 batches
-        from concurrent.futures import ThreadPoolExecutor
-        from collections import deque
-
-        with ThreadPoolExecutor(max_workers=num_workers) as pool:
-            pending = deque()
-            for chunk in chunks:
-                with profiling.span("data.batch"):
-                    samples = [self._sample(j, train) for j in chunk]
-                pending.append(pool.submit(assemble, None, samples))
-                if len(pending) > num_workers + 1:
-                    profiling.count("data.batches")
-                    yield pending.popleft().result()
-            while pending:
-                profiling.count("data.batches")
-                yield pending.popleft().result()
+                yield ahead.popleft()
+        while ahead:
+            profiling.count("data.batches")
+            yield ahead.popleft()
 
     @property
     def train_size(self) -> int:

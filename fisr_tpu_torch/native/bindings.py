@@ -8,7 +8,8 @@ The names are the JAX package's (fisr_tpu/native): `decode_png`,
 buffer variants, `yuv2rgb_ops_u8` is the colour conversion with the
 constants of ops/color, and `zstd_decompress`, `zstd_decompress_batch` and
 `zstd_decompress_bounded` decode zstd frames (csrc/zstd.cc; the orbax
-checkpoints' nodes and chunks).
+checkpoints' nodes and chunks), and `flow_sample` assembles one flow
+training sample (crop, data/augment's plan, / 255) into a batch's slots.
 
 Two sets of colour constants:
 * `yuv2rgb_matlab_u8` / `rgb2yuv_matlab_u8` use the JAX package's native
@@ -22,7 +23,8 @@ Each function checks shapes, bounds and dtypes here before it passes a
 pointer, raises what its plain version raises for bad input, and never falls
 back to the plain version: a failed build raises. ctypes releases the GIL for
 every call. `plain_versions()` maps each name to its plain version (numpy,
-the stdlib codec of data/png_io, the crc loop of convert/tensor_bundle); the
+the stdlib codec of data/png_io, the crc loop of convert/tensor_bundle,
+data/augment.apply_plan); the
 tests and chip_smoke.py hold every binding against it. The zstd decoder has
 none (see `plain_versions`).
 """
@@ -36,12 +38,14 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from fisr_tpu_torch.data.augment import apply_plan, scaled_size
 from fisr_tpu_torch.native import build
 
 __all__ = ["available", "decode_png", "decode_png_bytes", "decode_png_batch", "encode_png",
            "encode_png_bytes", "gather_rows", "extract_patches", "yuv2rgb_matlab_u8",
            "rgb2yuv_matlab_u8", "yuv2rgb_ops_u8", "crc32c", "zstd_decompress",
-           "zstd_decompress_batch", "zstd_decompress_bounded", "zlib_version", "plain_versions"]
+           "zstd_decompress_batch", "zstd_decompress_bounded", "flow_sample", "zlib_version",
+           "plain_versions"]
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i64p = ctypes.POINTER(ctypes.c_int64)
@@ -62,6 +66,9 @@ _SIGNATURES = {
     "fisr_png_write": ([ctypes.c_char_p, _u8p, _i64, _i64], _int),
     "fisr_zstd_decompress_batch": ([ctypes.c_void_p, _i64p, ctypes.c_void_p, _i64p, _i64, _int,
                                     _i64p, _i32p, ctypes.c_char_p], _i64),
+    "fisr_flow_sample": ([_u8p, ctypes.c_void_p, _i64, _i64, _i64, _i64, _i64, _i64, _int, _int,
+                          _i64, _i64, _int, ctypes.c_double, _i64, _i64, ctypes.c_void_p,
+                          ctypes.c_void_p], _int),
 }
 _INFO, _MSG = 8, 256  # int64s of a decode's info, bytes of its message
 _MAX_PIXELS = 178_956_970  # data/png_io._MAX_PIXELS
@@ -203,6 +210,59 @@ def extract_patches(src: np.ndarray, rects: Sequence[tuple], ph: int, pw: int) -
                                 x0s.ctypes.data_as(_i64p), len(rects), ph, pw,
                                 out.ctypes.data)
     return out
+
+
+# ---- flow training sample ---------------------------------------------------
+
+def _out_slot(a: np.ndarray, shape: tuple, name: str) -> None:
+    if not (isinstance(a, np.ndarray) and a.dtype == np.float32 and a.shape == shape
+            and a.flags.c_contiguous and a.flags.writeable):
+        raise ValueError(f"{name} must be a writeable C-contiguous float32 array of shape "
+                         f"{shape}, got {getattr(a, 'dtype', type(a))} {getattr(a, 'shape', '')}")
+
+
+def flow_sample(pair: np.ndarray, flow: np.ndarray, corner: tuple, crop_hw: tuple, plan,
+                x_out: np.ndarray, y_out: np.ndarray) -> None:
+    """One flow training sample written into x_out [2, ch, cw, 3] and y_out
+    [ch, cw, 2] (float32, C-contiguous: a batch's slots): the crop_hw crop at
+    `corner` (y0, x0) of the u8 pair [2, H, W, 3] and its f32 flow [H, W, 2],
+    augmented as data/augment.apply_plan does with `plan` (an AugmentPlan, or
+    None), the frames / 255; its bits, rows on the host's cores."""
+    pair = np.ascontiguousarray(pair)
+    flow = np.ascontiguousarray(flow)
+    if pair.dtype != np.uint8 or pair.ndim != 4 or pair.shape[0] != 2 or pair.shape[3] != 3:
+        raise ValueError(f"a pair is u8 [2, H, W, 3], got {pair.dtype} {pair.shape}")
+    hh, ww = pair.shape[1:3]
+    if flow.dtype != np.float32 or flow.shape != (hh, ww, 2):
+        raise ValueError(f"the flow of a {hh}x{ww} pair is f32 [{hh}, {ww}, 2], "
+                         f"got {flow.dtype} {flow.shape}")
+    (y0, x0), (ch, cw) = (int(v) for v in corner), (int(v) for v in crop_hw)
+    if ch < 1 or cw < 1 or y0 < 0 or x0 < 0 or y0 + ch > hh or x0 + cw > ww:
+        raise ValueError(f"a {ch}x{cw} crop at ({y0}, {x0}) leaves the {hh}x{ww} pair")
+    _out_slot(x_out, (2, ch, cw, 3), "x_out")
+    _out_slot(y_out, (ch, cw, 2), "y_out")
+    lr, ud, (tx, ty), ratio = False, False, (0, 0), None
+    if plan is not None:
+        lr, ud, (tx, ty), ratio = plan.fliplr, plan.flipud, plan.shift, plan.ratio
+    sh, sw = (ch, cw) if ratio is None else scaled_size(ch, cw, ratio)
+    if sh < 1 or sw < 1:  # _resize_bilinear's h / out_h
+        raise ZeroDivisionError(f"ratio {ratio} resizes the {ch}x{cw} crop to {sh}x{sw}")
+    if _lib().fisr_flow_sample(_ptr(pair), flow.ctypes.data, hh, ww, y0, x0, ch, cw, int(lr),
+                               int(ud), int(tx), int(ty), int(ratio is not None),
+                               1.0 if ratio is None else float(ratio), sh, sw,
+                               x_out.ctypes.data, y_out.ctypes.data):
+        raise MemoryError("no memory or threads to assemble the flow sample")
+
+
+def _plain_flow_sample(pair, flow, corner, crop_hw, plan, x_out, y_out) -> None:
+    """numpy version of flow_sample: FlowDataset's crop, then apply_plan."""
+    (y0, x0), (ch, cw) = corner, crop_hw
+    x = np.asarray(pair).astype(np.float32)[:, y0:y0 + ch, x0:x0 + cw]
+    y = np.asarray(flow)[y0:y0 + ch, x0:x0 + cw]
+    if plan is not None:
+        x, y = apply_plan(x, y, plan)
+    x_out[...] = x / 255.0
+    y_out[...] = y
 
 
 # ---- colour -----------------------------------------------------------------
@@ -435,4 +495,5 @@ def plain_versions() -> dict:
         "decode_png_batch": lambda paths: np.stack([png_io.read_png(p) for p in paths]),
         "encode_png": png_io.write_png,
         "encode_png_bytes": png_io.encode_png,
+        "flow_sample": _plain_flow_sample,
     }
