@@ -86,15 +86,22 @@ Phases (any failure raises and exits non-zero):
    the record) and bf16, samples/s and peak memory.
 9. pwc_train - train/pwc_trainer.make_pwc_train_step at full width (PWC-Net
    lg-6-2) on FlowDataset.synthetic_textured, batch 8 of 256x448, multiscale
-   loss: 5 cost-volume launches a step, fma_f32 under F32 and mma_bf16 under
-   BF16, and 5 backward launches (bwd_f32 / bwd_bf16); each kernel against
-   its plain version at exactly the shapes and dtypes those launches had
-   ([8, 256>>l, 448>>l, C], down to 4x7); in f32 the parameter gradients
+   loss, the graphed step as pwc_fit runs it: its first 3 calls (two eager,
+   then the capture) make 15 cost-volume launches, fma_f32 under F32 and
+   mma_bf16 under BF16, and 15 backward launches (bwd_f32 / bwd_bf16); each
+   kernel against its plain version at exactly the shapes and dtypes those
+   launches had ([8, 256>>l, 448>>l, C], down to 4x7); 6 graphed steps
+   across a halving of the rate bit-equal to 6 eager ones in losses,
+   parameters and moments under deterministic cuDNN; 5 cost_volume_kernel
+   and 5 cost_volume_bwd kernels a replayed step in torch.profiler's trace;
+   in f32 the parameter gradients
    through the kernels against those through the plain version and its
    autograd (1e-5 of the largest gradient); the loss must fall over repeated
    steps on one batch; make_pwc_eval_step must give a finite EPE. Prints ms
-   per step (f32 also with PyTorch's TF32 convolutions, for the record) and,
-   of it, the time inside the cost volume's backward per level, and times
+   per replayed step (f32 also with PyTorch's TF32 convolutions, for the
+   record) beside the eager step's, the card's busy time and kernels of a
+   replayed step, the time inside an eager step's cost-volume backward per
+   level, and times
    the backward alone at the five level shapes: the kernel's graph_ms (by
    level, beside each level's byte bound), card busy time and its caller's
    wait, against the card busy
@@ -1177,10 +1184,11 @@ def wall_ms(fn, reps=3, warmup=1):
     return 1e3 * (time.perf_counter() - t0) / reps
 
 
-def device_busy(fn, reps=2):
+def device_busy(fn, reps=2, names=()):
     """(ms the card is busy, CUDA kernels and copies) a call of `fn`, from
     torch.profiler: beside the call's wall time they say how far the host's
-    launches hold the card back. Only the card's activity is traced."""
+    launches hold the card back. Only the card's activity is traced. With
+    `names`, a third item: {name: kernels a call whose name holds it}."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1191,7 +1199,10 @@ def device_busy(fn, reps=2):
     on_card = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
     if not on_card:
         raise AssertionError("torch.profiler recorded no device activity")
-    return sum(ev.device_time for ev in on_card) / 1e3 / reps, len(on_card) / reps
+    busy, kernels = sum(ev.device_time for ev in on_card) / 1e3 / reps, len(on_card) / reps
+    if not names:
+        return busy, kernels
+    return busy, kernels, {n: sum(n in ev.name for ev in on_card) / reps for n in names}
 
 
 def moved(before, model):
@@ -1361,8 +1372,10 @@ def phase_pwc_train(tmp):
     from fisr_tpu_torch.models import pwcnet
     from fisr_tpu_torch.ops.conv import BF16, F32
     from fisr_tpu_torch.train import pwc_trainer, schedule, trainer
+    from fisr_tpu_torch.device import cudnn_deterministic
     from fisr_tpu_torch.train.checkpoint import CheckpointManager
     from fisr_tpu_torch.train.pwc_loss import pwcnet_loss
+    from fisr_tpu_torch.utils import profiling
 
     h, w = PWC_CROP
     ds = FlowDataset.synthetic_textured(n=10, h=h, w=w, seed=0, val_split=0.2)
@@ -1394,38 +1407,80 @@ def phase_pwc_train(tmp):
 
     level_shapes = [(8, h >> lvl, w >> lvl, c) for lvl, c in LEVEL_CHANNELS.items()]
     errs, bwd_errs, steps = {}, {}, {}
+    cv_names = ("cost_volume_kernel", "cost_volume_bwd")
+
+    def graph_counters():
+        c = profiling.totals()["counters"]
+        return [c.get(k, 0) for k in ("train.steps", "train.graph_captures",
+                                       "train.graph_replays")]
+
+    def fresh_state():  # the rate halves from the fourth step, so its fill is checked too
+        return pwc_trainer.create_pwc_state(
+            0, trainer.tf_adam(schedule.multisteps([1e-4, 5e-5], [2])), device="cuda")
+
     for name, policy, variant in (("f32", F32, "fma_f32"), ("bf16", BF16, "mma_bf16")):
-        state = pwc_trainer.create_pwc_state(0, trainer.tf_adam(1e-4), device="cuda")
+        # the step as pwc_fit and the benchmark run it (two eager calls, the
+        # capture, then replays), held against the eager step on the same batch
+        state, ref = fresh_state(), fresh_state()
         step = pwc_trainer.make_pwc_train_step(policy=policy)
-        reset_launches(kernel)
-        with recorded_launches(kernel) as (seen, seen_bwd):
-            state, m = step(state, batch)
-        torch.cuda.synchronize()
-        require_launches(kernel, f"pwc train step ({name})", want=5, variant=variant)
-        require_backward(kernel, f"pwc train step ({name})", want=5, variant=f"bwd_{name}")
-        launches, bwd_launches = kernel.LAUNCHES, kernel.BACKWARD_LAUNCHES
-        errs[name] = check_recorded(kernel, seen, level_shapes, f"pwc train step ({name})", seed=6)
-        bwd_errs[name] = check_recorded(kernel, seen_bwd, level_shapes,
-                                        f"pwc train step ({name})", seed=9, backward=True)
-        losses = [float(m["loss"])]
-        for _ in range(5):
-            state, m = step(state, batch)
-            losses.append(float(m["loss"]))
+        eager = pwc_trainer.make_pwc_train_step(policy=policy, graph=False)
+        counted = graph_counters()
+        losses, want = [], []
+        with cudnn_deterministic():
+            reset_launches(kernel)
+            # a replay passes no wrapper: the launches are those of the first
+            # three calls, the capturing one included
+            with recorded_launches(kernel) as (seen, seen_bwd):
+                for _ in range(3):
+                    state, m = step(state, batch)
+                    losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            what = f"pwc train step ({name}), its first 3 calls"
+            require_launches(kernel, what, want=15, variant=variant)
+            require_backward(kernel, what, want=15, variant=f"bwd_{name}")
+            launches, bwd_launches = kernel.LAUNCHES // 3, kernel.BACKWARD_LAUNCHES // 3
+            errs[name] = check_recorded(kernel, seen, 3 * level_shapes, what, seed=6)
+            bwd_errs[name] = check_recorded(kernel, seen_bwd, 3 * level_shapes, what, seed=9,
+                                            backward=True)
+            for _ in range(3):
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+            for _ in range(6):
+                ref, m = eager(ref, batch)
+                want.append(float(m["loss"]))
+            torch.cuda.synchronize()
+        moved_by = [b - a for a, b in zip(counted, graph_counters())]
+        if moved_by != [12, 1, 4]:
+            raise AssertionError(f"pwc train step ({name}): steps, captures, replays moved by "
+                                 f"{moved_by} in 6 graphed and 6 eager steps, want [12, 1, 4]")
+        if losses != want:
+            raise AssertionError(f"pwc train step ({name}), graphed against eager under "
+                                 f"deterministic cuDNN: losses {losses} against {want}")
+        for (k, p), q in zip(state.model.named_parameters(), ref.model.parameters()):
+            same = [torch.equal(p, q)] + [torch.equal(state.optimizer.state[p][f],
+                                                      ref.optimizer.state[q][f])
+                                          for f in ("mu", "nu")]
+            if not all(same):
+                raise AssertionError(f"pwc train step ({name}), graphed against eager after 6 "
+                                     f"steps: {k} (parameter, mu, nu) equal {same}")
         if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
             raise AssertionError(f"pwc loss did not fall on one batch ({name}): {losses}")
         epe = float(pwc_trainer.make_pwc_eval_step(policy=policy)(state.model, val)["epe"])
         if not np.isfinite(epe):
             raise AssertionError(f"eval EPE ({name}): {epe}")
+        # timed under the default flags, which the graph is bound to: the
+        # warm-up calls make its capture anew
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ms = wall_ms(lambda: step(state, batch))
+        ms = wall_ms(lambda: step(state, batch), warmup=3)
         peak = torch.cuda.max_memory_allocated() / 2**30
+        eager_ms = wall_ms(lambda: eager(ref, batch))
         ms_tf32 = None
         if name == "f32":  # for the record: the same step with TF32 convolutions
             with torch_tf32_defaults():
-                ms_tf32 = wall_ms(lambda: step(state, batch))
+                ms_tf32 = wall_ms(lambda: step(state, batch), warmup=3)
 
-        # of a step, the time inside the cost volume's backward, by level
+        # of an eager step, the time inside the cost volume's backward, by level
         events, orig = [], kernel._CostVolume.backward
 
         def timed(ctx, g):
@@ -1439,7 +1494,7 @@ def phase_pwc_train(tmp):
         kernel._CostVolume.backward = staticmethod(timed)
         try:
             for _ in range(3):
-                state, m = step(state, batch)
+                ref, m = eager(ref, batch)
             torch.cuda.synchronize()
         finally:
             kernel._CostVolume.backward = staticmethod(orig)
@@ -1451,19 +1506,33 @@ def phase_pwc_train(tmp):
             raise AssertionError(f"cost-volume backward ran at levels {sorted(by_level)}, "
                                  f"{len(events)} times in 3 steps")
         inside = sum(by_level.values())
-        busy, kernels = device_busy(lambda: step(state, batch))
-        steps[name] = {"ms": ms, "busy_ms": busy, "kernels": kernels, "peak_gib": peak,
-                       "inside_backward_ms": inside, "launches": launches,
+        # the card's work in replayed steps: the graph launches the kernels
+        for _ in range(3):  # back under the default flags: captured anew
+            state, m = step(state, batch)
+        counted = graph_counters()
+        busy, kernels, by_name = device_busy(lambda: step(state, batch), names=cv_names)
+        moved_by = [b - a for a, b in zip(counted, graph_counters())]
+        if moved_by != [2, 0, 2] or by_name != dict.fromkeys(cv_names, 5):
+            raise AssertionError(f"pwc train step ({name}), 2 traced steps: steps, captures, "
+                                 f"replays moved by {moved_by}, want [2, 0, 2]; cost-volume "
+                                 f"kernels a step {by_name}, want 5 each")
+        steps[name] = {"ms": ms, "eager_ms": eager_ms, "busy_ms": busy, "kernels": kernels,
+                       "peak_gib": peak, "inside_backward_ms": inside, "launches": launches,
                        "bwd_launches": bwd_launches, "ms_tf32": ms_tf32}
-        log(f"[pwc_train] {name}: 5 {variant} and 5 bwd_{name} launches a step, the kernels "
-            f"against the plain versions at their shapes {[list(s) for s in level_shapes]}: max "
-            f"|diff| {errs[name]:.3g} forward, {bwd_errs[name]:.3g} backward; loss {losses[0]:.4f} -> "
-            f"{losses[-1]:.4f} over 6 steps on one batch; eval EPE {epe:.4f}; {ms:.2f} ms a step "
+        log(f"[pwc_train] {name}: the graphed step's first 3 calls made 15 {variant} and 15 "
+            f"bwd_{name} launches, the kernels against the plain versions at their shapes "
+            f"{[list(s) for s in level_shapes]}: max |diff| {errs[name]:.3g} forward, "
+            f"{bwd_errs[name]:.3g} backward; 6 graphed steps (1 capture, 4 replays) bit-equal "
+            f"to 6 eager ones in losses, parameters and moments under deterministic cuDNN, "
+            f"across a halving of the rate; loss {losses[0]:.4f} -> {losses[-1]:.4f} over 6 "
+            f"steps on one batch; eval EPE {epe:.4f}; {ms:.2f} ms a step replayed "
             + (f"(TF32 off, as the F32 policy runs it; {ms_tf32:.2f} with PyTorch's TF32 "
                f"convolutions) " if ms_tf32 is not None else "")
-            + f"(batch 8 of {h}x{w}, {8e3 / ms:.1f} samples/s), peak {peak:.2f} GiB, card busy "
-            f"{busy:.2f} ms in {kernels:.0f} kernels; inside the "
-            f"cost volume's backward {inside:.2f} ms a step ({100 * inside / ms:.0f} %), by level "
+            + f"(batch 8 of {h}x{w}, {8e3 / ms:.1f} samples/s), {eager_ms:.2f} ms eager, peak "
+            f"{peak:.2f} GiB; a replayed step keeps the card busy {busy:.2f} ms in "
+            f"{kernels:.0f} kernels, 5 cost_volume_kernel and 5 cost_volume_bwd among them; "
+            f"inside an eager step's cost-volume backward {inside:.2f} ms "
+            f"({100 * inside / eager_ms:.0f} %), by level "
             + ", ".join(f"{lvl}: {by_level[lvl]:.2f}" for lvl in sorted(by_level)))
 
     # that backward alone at the five level shapes of this batch
@@ -2128,7 +2197,7 @@ def multi_device(fisr, pwc, tmp):
     dp, dp_ms = {}, {}
     for name, on in (("single", None), ("mesh", m)):
         state = pwc_trainer.create_pwc_state(0, trainer.tf_adam(1e-4), device="cuda")
-        step_fn = pwc_trainer.make_pwc_train_step(policy=F32, mesh=on)
+        step_fn = pwc_trainer.make_pwc_train_step(policy=F32, mesh=on, graph=False)
         b = mesh.shard_batch(batch, m) if on is not None else trainer.batch_to_device(batch, "cuda")
         reset_launches(kernel)
         with cudnn_deterministic(), recorded_launches(kernel) as (seen, seen_bwd):

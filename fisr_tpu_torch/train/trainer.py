@@ -61,6 +61,14 @@ class TFAdam(torch.optim.Optimizer):
     TF's beta-power accumulators are. A parameter without a gradient takes a
     zero gradient (its moments decay), as a leaf outside the loss does under
     `jax.grad`.
+
+    A step is two halves. `begin_step` runs on the host: it evaluates the
+    schedule, advances `count` and writes the learning rate and each group's
+    correction into 0-dim float32 tensors on the parameters' device
+    (`fill_`, which passes the value as a kernel argument). `update` is the
+    device's work and reads both from there, so an update captured in a CUDA
+    graph (train/pwc_trainer) replays with each step's values; `step` is
+    the two in turn, and eager and replayed steps run the same arithmetic.
     """
 
     def __init__(self, params, learning_rate: LearningRate, b1: float = 0.9,
@@ -68,9 +76,14 @@ class TFAdam(torch.optim.Optimizer):
         super().__init__(params, dict(b1=b1, b2=b2, eps=eps))
         self.learning_rate = learning_rate
         self.count = 0
+        # per group: (learning rate, bias correction), on the group's device
+        self._scalars = []
         for group in self.param_groups:
             for p in group["params"]:
                 self.state[p] = {"mu": torch.zeros_like(p), "nu": torch.zeros_like(p)}
+            dev = group["params"][0].device
+            self._scalars.append(tuple(torch.zeros((), dtype=torch.float32, device=dev)
+                                       for _ in range(2)))
 
     def current_lr(self) -> float:
         """The learning rate the next step will use."""
@@ -78,16 +91,24 @@ class TFAdam(torch.optim.Optimizer):
         return float(lr(self.count)) if callable(lr) else float(lr)
 
     @torch.no_grad()
-    def step(self, closure=None):
-        if closure is not None:
-            raise ValueError("TFAdam.step takes no closure")
+    def begin_step(self) -> None:
+        """The host's half of a step: this step's learning rate and bias
+        corrections into the device scalars that `update` reads."""
         lr = self.current_lr()
         self.count += 1
         t = np.float32(self.count)
-        for group in self.param_groups:
+        for group, (lr_t, corr_t) in zip(self.param_groups, self._scalars):
+            b1, b2 = np.float32(group["b1"]), np.float32(group["b2"])
+            corr = np.sqrt(np.float32(1.0) - b2 ** t) / (np.float32(1.0) - b1 ** t)
+            lr_t.fill_(lr)
+            corr_t.fill_(float(corr))
+
+    @torch.no_grad()
+    def update(self) -> None:
+        """The device's half of a step: the moments and parameters updated in
+        place from the gradients and the scalars `begin_step` wrote."""
+        for group, (lr_t, corr_t) in zip(self.param_groups, self._scalars):
             b1, b2, eps = group["b1"], group["b2"], group["eps"]
-            corr = float(np.sqrt(np.float32(1.0) - np.float32(b2) ** t)
-                         / (np.float32(1.0) - np.float32(b1) ** t))
             params = list(group["params"])
             grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
             mu = [self.state[p]["mu"] for p in params]
@@ -98,9 +119,16 @@ class TFAdam(torch.optim.Optimizer):
             torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
             denom = torch._foreach_sqrt(nu)
             torch._foreach_add_(denom, eps)
-            scaled = torch._foreach_mul(mu, corr)
+            scaled = torch._foreach_mul(mu, corr_t)
             torch._foreach_div_(scaled, denom)
-            torch._foreach_add_(params, scaled, alpha=-lr)
+            torch._foreach_mul_(scaled, lr_t)
+            torch._foreach_sub_(params, scaled)
+
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("TFAdam.step takes no closure")
+        self.begin_step()
+        self.update()
 
 
 def tf_adam(learning_rate: LearningRate, b1: float = 0.9, b2: float = 0.999,
