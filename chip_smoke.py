@@ -41,7 +41,7 @@ Phases (any failure raises and exits non-zero):
    (3 pairs x 5 levels, all of the bf16 variant), timed on its first call and
    again warm, the warm call's host stages a window (decode, upload, card
    wait, colour, encode, file write; scripts/time_torch_pipeline.instrumented);
-   then per-pair and per-window times and peak memory.
+   then per-pair and per-window times, peak memory and a pair's peak.
    serve  - the serving CLI's service (cli/serve.build_service at its
    defaults: 1024x1920, bf16, fisr_grid 'auto', flow_scale 2, the generator's
    full-width weights) behind infer/daemon.make_server on the loopback, over
@@ -59,10 +59,10 @@ Phases (any failure raises and exits non-zero):
 5. tiled  - the window stage at full width under fisr_grid None, 'auto'
    (must resolve to (4, 6), pad (0, 0)) and (2, 2): shape, finiteness, ms per
    window and peak memory of each plan (nothing is asserted about which is
-   fastest), and the time of the weight fold of up_conv2x, anew and kept. In f32 at 128x128
-   (TF32 off): tiled_apply against TiledRunner(mode='padded'), and
-   fuse_input_glue=True against the composed apply, both within 1e-5; at
-   160x160 the stale-halo shrink against the full ring, within 1e-6.
+   fastest), and the time of the weight fold of up_conv2x, anew and kept. In
+   f32 at 128x128 (TF32 off): tiled_apply against TiledRunner(mode='padded'),
+   within 1e-5; at 160x160 the stale-halo shrink against the full ring,
+   within 1e-6.
 6. staged - run_video_pipeline(fused=False, grid=(2, 2)) on the same frames:
    6 outputs, 15 more cost-volume launches (all bf16), frames compared with
    the fused run's; the .flo and .mat artifacts written and read back
@@ -214,7 +214,7 @@ D = 4
 LEVEL_CHANNELS = {2: 32, 3: 64, 4: 96, 5: 128, 6: 196}
 SMALL_TOL = 1e-4   # kernel vs plain path through both networks, outputs in [0, 1]
 ORACLE_TOL = 1e-5  # card (f32, TF32 off) vs the TF-oracle fixtures
-TILED_TOL = 1e-5   # device tiling vs host padded tiling, fused glue vs composed (f32)
+TILED_TOL = 1e-5   # device tiling vs host padded tiling (f32)
 TRAIN_TOL = 1e-4   # first train step's loss terms, card (f32, TF32 off) vs CPU, relative
 GRAD_TOL = 1e-5    # PWC-Net parameter gradients, kernel vs plain forward, of the largest gradient
 TRAIN_PATCH = 96   # the reference's training patches
@@ -717,8 +717,15 @@ def phase_full(fisr, pwc, tmp):
             raise AssertionError(f"prediction shape {tuple(pred.shape)}")
         pair_ms = time_ms(lambda: pair_fn(pwc, d[0], d[1]), reps=5, warmup=1)
         window_ms = time_ms(lambda: window_fn(fisr, win, p01, p12), reps=5, warmup=1)
-    log(f"[full] bf16 {h}x{w}: per pair {pair_ms:.3f} ms, per window (FISRnet stage) "
-        f"{window_ms:.3f} ms, steady state {pair_ms + window_ms:.3f} ms per output window")
+        # a pair's peak, the resident models and tensors included
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pair_fn(pwc, d[0], d[1])
+        torch.cuda.synchronize()
+        pair_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[full] bf16 {h}x{w}: per pair {pair_ms:.3f} ms (peak {pair_gib:.2f} GiB), per window "
+        f"(FISRnet stage) {window_ms:.3f} ms, steady state {pair_ms + window_ms:.3f} ms per "
+        "output window")
     return launches, folder
 
 
@@ -913,9 +920,7 @@ def phase_tiled(fisr, pwc, frames_u8):
     from fisr_tpu_torch.infer.tiled import TiledRunner
     from fisr_tpu_torch.infer.video import make_fisr_window_fn, make_pair_fn, resolve_fisr_plan
     from fisr_tpu_torch.models import fisrnet
-    from fisr_tpu_torch.ops.conv import (BF16, F32, _fold_up_conv_weights, conv2d,
-                                         conv_in_fused)
-    from fisr_tpu_torch.ops.resize import downsample_int
+    from fisr_tpu_torch.ops.conv import BF16, F32, _fold_up_conv_weights
 
     dev = torch.device("cuda")
     h, w = WINDOW
@@ -953,44 +958,24 @@ def phase_tiled(fisr, pwc, frames_u8):
             log(f"[tiled] up_conv2x weight fold, level_3.dec.{name} {tuple(p.weight.shape)}: "
                 f"{ms:.4f} ms a call")
 
-        # the fused input glue at the 'auto' plan's batch (24 patches of 320x384):
-        # cuDNN on the strided, dilated 29-channel conv against the composition
-        xb = torch.rand((24, 320, 384, 29), device=dev, generator=torch.Generator(
-            device=dev).manual_seed(3)).to(torch.bfloat16)
-        for lvl, k in (("level_1", 4), ("level_2", 2)):
-            c_in = getattr(fisr, lvl).enc["level_0"].conv_in
-            extra = None if k == 4 else torch.rand((24, 160, 192, 9), device=dev).to(torch.bfloat16)
-
-            def composed():
-                sub = downsample_int(xb, k)
-                return conv2d(c_in, sub if extra is None else torch.cat([sub, extra], -1), BF16)
-
-            fused_ms = time_ms(lambda: conv_in_fused(c_in, xb, extra, BF16, k), reps=10)
-            composed_ms = time_ms(composed, reps=10)
-            log(f"[tiled] conv_in of {lvl} on [24, 320, 384, 29] bf16, stride {k}: conv_in_fused "
-                f"{fused_ms:.3f} ms, subsample + concat + conv {composed_ms:.3f} ms")
-
-        # f32 at a small size: the device tiling and the fused glue leave the function alone
+        # f32 at a small size: the device tiling leaves the function alone
         g = torch.Generator(device=dev).manual_seed(2)
         x = torch.rand((1, 128, 128, 29), device=dev, generator=g)
         got = tiled_apply(fisr, x, (2, 2), 32, 2, F32)
         host = TiledRunner(fisr, grid=(2, 2), boundary=32, policy=F32, mode="padded", device=dev)
         e_tiled = float(np.abs(got.cpu().numpy() - host(x.cpu().numpy())).max())
-        plain = fisrnet.apply(fisr, x, 2, F32)[2]
-        glued = fisrnet.apply(fisr, x, 2, F32, fuse_input_glue=True)[2]
-        e_glue = (plain - glued).abs().max().item()
         # the stale-halo shrink against the full ring on the pixels it keeps
         x = torch.rand((1, 160, 160, 29), device=dev, generator=g)
         ring = fisrnet.apply(fisr, x, 2, F32)[2][:, 64:-64, 64:-64]
         shrunk = fisrnet.apply(fisr, x, 2, F32, final_stale_halo=32)[2][:, 16:-16, 16:-16]
         e_shrink = (ring - shrunk).abs().max().item()
-    if not (e_tiled <= TILED_TOL and e_glue <= TILED_TOL and e_shrink <= SHRINK_TOL):
-        raise AssertionError(f"f32: tiled_apply vs host padded tiling {e_tiled}, fused glue vs "
-                             f"composed {e_glue} (bound {TILED_TOL}), stale-halo shrink vs full "
-                             f"ring {e_shrink} (bound {SHRINK_TOL})")
-    log(f"[tiled] f32 128x128: tiled_apply vs TiledRunner(padded) {e_tiled}, fuse_input_glue vs "
-        f"composed {e_glue} (bound {TILED_TOL}); 160x160: stale-halo shrink vs full ring on "
-        f"retained pixels {e_shrink} (bound {SHRINK_TOL}; 0 = bit-equal)")
+    if not (e_tiled <= TILED_TOL and e_shrink <= SHRINK_TOL):
+        raise AssertionError(f"f32: tiled_apply vs host padded tiling {e_tiled} (bound "
+                             f"{TILED_TOL}), stale-halo shrink vs full ring {e_shrink} (bound "
+                             f"{SHRINK_TOL})")
+    log(f"[tiled] f32 128x128: tiled_apply vs TiledRunner(padded) {e_tiled} (bound {TILED_TOL}); "
+        f"160x160: stale-halo shrink vs full ring on retained pixels {e_shrink} (bound "
+        f"{SHRINK_TOL}; 0 = bit-equal)")
     return plans
 
 

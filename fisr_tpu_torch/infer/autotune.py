@@ -150,9 +150,9 @@ def sweep(params: fisrnet.FISRnet, h: int, w: int, *, policy: Optional[Policy] =
 class TuneCache:
     """Persisted sweep results keyed by device kind + measurement config.
 
-    `best(h, w)` returns the measured winner for this device kind, or None
-    if that frame size was never tuned here (callers fall back to the
-    `best_grid` heuristic). `device` names the device whose kind keys the
+    `best_plan(h, w)` returns the measured winner for this device kind, or
+    None if that frame size was never tuned here (callers fall back to the
+    `padded_grid` heuristic). `device` names the device whose kind keys the
     entries (and that `tune` measures on)."""
 
     def __init__(self, path: Optional[str] = None,
@@ -183,17 +183,6 @@ class TuneCache:
     def _key(self, h: int, w: int, dtype: str, boundary: int) -> str:
         return f"{self._device_kind(self.device)}|{h}x{w}|{dtype}|b{boundary}"
 
-    def best(self, h: int, w: int, dtype: str = "bfloat16",
-             boundary: int = 32) -> Optional[Tuple[int, int]]:
-        """Fastest pad-free grid (always divides h, w; plain tiled_apply)."""
-        entry = self._data.get(self._key(h, w, dtype, boundary))
-        if not entry:
-            return None
-        for r in entry["results"]:  # sorted fastest first by sweep()
-            if tuple(r.get("pad", (0, 0))) == (0, 0):
-                return tuple(r["grid"])
-        return None
-
     def best_plan(self, h: int, w: int, dtype: str = "bfloat16", boundary: int = 32
                   ) -> Optional[Tuple[Tuple[int, int], Tuple[int, int]]]:
         """Fastest (grid, (pad_h, pad_w)) overall, padded entries included
@@ -210,8 +199,8 @@ class TuneCache:
              max_gw: int = 8, verbose: bool = False) -> Optional[Tuple[int, int]]:
         """Sweep on this cache's device (`sweep`'s candidates, or `grids`),
         persist, and return the winning pad-free grid, or None when every
-        pad-free candidate ran out of memory (`best` then gives None too).
-        The overall winner, possibly padded, is what `best_plan` serves."""
+        pad-free candidate ran out of memory. The overall winner, possibly
+        padded, is what `best_plan` serves."""
         policy = policy or F32
         key = self._key(h, w, dtype_name(policy), boundary)
         results = sweep(params, h, w, policy=policy, boundary=boundary, reps=reps, grids=grids,

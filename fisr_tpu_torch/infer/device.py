@@ -24,7 +24,6 @@ import torch
 import torch.nn.functional as F
 
 from fisr_tpu_torch.device import resolve_device
-from fisr_tpu_torch.infer.halo import unpatchify
 from fisr_tpu_torch.models import fisrnet
 from fisr_tpu_torch.ops.conv import F32, Policy
 from fisr_tpu_torch.ops.resize import downsample_int
@@ -46,6 +45,15 @@ def _split(x: torch.Tensor, grid, halo_h: int, halo_w: int) -> torch.Tensor:
     xp = F.pad(x, (0, 0, halo_w, halo_w, halo_h, halo_h))
     return torch.cat([xp[:, i * sh:(i + 1) * sh + 2 * halo_h, j * sw:(j + 1) * sw + 2 * halo_w, :]
                       for i in range(gh) for j in range(gw)], 0)
+
+
+def _unpatchify(y: torch.Tensor, grid: Tuple[int, int], b: int) -> torch.Tensor:
+    """Inverse of `_split` on the patch cores: [gh*gw*B, sh, sw, C] ->
+    [B, gh*sh, gw*sw, C]."""
+    gh, gw = grid
+    _, sh, sw, c = y.shape
+    t = y.reshape(gh, gw, b, sh, sw, c)
+    return t.permute(2, 0, 3, 1, 4, 5).reshape(b, gh * sh, gw * sw, c)
 
 
 def _stale(halo_h: int, halo_w: int, halo: int) -> int:
@@ -75,7 +83,7 @@ def run_level_tiled(p: fisrnet.Level, x: torch.Tensor, grid, halo: int, sf: int 
     th = (fisrnet._TAIL_HEADS if stale else hh) * sf
     tw = (fisrnet._TAIL_HEADS if stale else hw) * sf
     core = pred[:, th:pred.shape[1] - th, tw:pred.shape[2] - tw, :]
-    return unpatchify(core, grid, b)
+    return _unpatchify(core, grid, b)
 
 
 def default_plans(h: int, w: int):
@@ -116,10 +124,9 @@ def tiled_apply(model: fisrnet.FISRnet, x: torch.Tensor, grid: Tuple[int, int],
     """Padded tiling on the device (the runners' and the fused video path's).
 
     Zero-pads only the axes the grid splits, batches the patch grid into one
-    FISRnet apply with the fused input glue and level 3's folded upsample,
-    trims and reassembles. When both axes are split the halo is declared
-    stale (final_stale_halo) and the model shrinks it once the remaining
-    stages stop reading it.
+    FISRnet apply with level 3's folded upsample, trims and reassembles. When
+    both axes are split the halo is declared stale (final_stale_halo) and the
+    model shrinks it once the remaining stages stop reading it.
     """
     gh, gw = grid
     b, h, w, _c = x.shape
@@ -130,11 +137,11 @@ def tiled_apply(model: fisrnet.FISRnet, x: torch.Tensor, grid: Tuple[int, int],
     bw = boundary if gw > 1 else 0
     stale = _stale(bh, bw, boundary)
     pred = fisrnet.apply(model, _split(policy.cast(x), grid, bh, bw), sf, policy,
-                         final_stale_halo=stale, fast_upsample=True, fuse_input_glue=True)[2]
+                         final_stale_halo=stale, fast_upsample=True)[2]
     th = (fisrnet._TAIL_HEADS if stale else bh) * sf
     tw = (fisrnet._TAIL_HEADS if stale else bw) * sf
     core = pred[:, th:th + s_h * sf, tw:tw + s_w * sf, :]
-    return unpatchify(core, grid, b)
+    return _unpatchify(core, grid, b)
 
 
 def tiled_apply_padded(model: fisrnet.FISRnet, x: torch.Tensor, grid: Tuple[int, int],
@@ -230,7 +237,7 @@ def make_device_runner(mode: str = "full", grid: Tuple[int, int] = (2, 2),
     without autograd. Modes 'full', 'staged', 'tiled'."""
     if mode == "full":
         def run(model, x):
-            return fisrnet.apply(model, x, sf, policy, fuse_input_glue=True)[2]
+            return fisrnet.apply(model, x, sf, policy)[2]
     elif mode == "staged":
         def run(model, x):
             return staged_apply(model, x, None, boundary, sf, policy)[2]

@@ -35,7 +35,7 @@ from fisr_tpu_torch.data import matio
 from fisr_tpu_torch.data.png_io import list_pngs
 from fisr_tpu_torch.device import resolve_device
 from fisr_tpu_torch.infer.autotune import TuneCache, dtype_name
-from fisr_tpu_torch.infer.device import best_grid, padded_grid, tiled_apply_padded
+from fisr_tpu_torch.infer.device import padded_grid, tiled_apply_padded
 from fisr_tpu_torch.infer.tiled import TiledRunner
 from fisr_tpu_torch.models import fisrnet, pwcnet
 from fisr_tpu_torch.native import decode_png_batch, encode_png_bytes, yuv2rgb_ops_u8
@@ -46,8 +46,7 @@ from fisr_tpu_torch.ops.warp import dense_image_warp
 from fisr_tpu_torch.utils import profiling
 
 __all__ = ["make_flow_fn", "make_warp_fn", "make_pair_fn", "make_fisr_window_fn",
-           "make_fused_video_step", "resolve_fisr_grid", "resolve_fisr_plan",
-           "run_video_pipeline"]
+           "make_fused_video_step", "resolve_fisr_plan", "run_video_pipeline"]
 
 FLOW_NORM = 96.0 * 2.0  # reference FISRnet.py:1016
 
@@ -134,17 +133,6 @@ def resolve_fisr_plan(fisr_grid, h: int, w: int, policy: Policy, device="cuda"):
         plan = TuneCache(device=device).best_plan(h, w, dtype_name(policy))
         return plan or padded_grid(h, w)
     return tuple(fisr_grid), (0, 0)
-
-
-def resolve_fisr_grid(fisr_grid, h: int, w: int, policy: Policy, device="cuda"):
-    """Like `resolve_fisr_plan` but restricted to plans without padding:
-    'auto' is infer/device.best_grid, 'tuned' the cache's best pad-free
-    entry; the grid always divides (h, w)."""
-    if fisr_grid == "auto":
-        return best_grid(h, w)
-    if fisr_grid == "tuned":
-        return TuneCache(device=device).best(h, w, dtype_name(policy)) or best_grid(h, w)
-    return tuple(fisr_grid)
 
 
 def _fisr_window_core(model: fisrnet.FISRnet, f0, f1, f2, flows01, warps01,

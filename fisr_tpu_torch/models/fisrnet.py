@@ -22,8 +22,7 @@ from torch import nn
 from fisr_tpu_torch.device import resolve_device
 from fisr_tpu_torch.ops.conv import (
     F32, Bottleneck, Conv, DecLevel, EncLevel, Policy, ResBlock, bottleneck,
-    conv2d, conv_in_fused, dec_level, enc_level, head_tail_conv, init_weights_,
-    max_pool_2x2, res_block,
+    conv2d, dec_level, enc_level, head_tail_conv, init_weights_, res_block,
 )
 from fisr_tpu_torch.ops.resize import downsample_int
 
@@ -109,8 +108,7 @@ _TAIL_HEADS = 8
 
 
 def apply_level(p: Level, x: torch.Tensor, sf: int = 2, policy: Policy = F32,
-                stale_halo: int = 0, fast_upsample: bool = False,
-                extra: torch.Tensor | None = None, in_stride: int = 1) -> torch.Tensor:
+                stale_halo: int = 0, fast_upsample: bool = False) -> torch.Tensor:
     """One U-Net level: x [B, h, w, C] -> prediction [B, h*sf, w*sf, 9].
 
     stale_halo: the caller tiled the frame and x carries a ring of
@@ -129,21 +127,10 @@ def apply_level(p: Level, x: torch.Tensor, sf: int = 2, policy: Policy = F32,
     subpixel conv (ops/conv.up_conv2x), exact except at the frame border.
     dec2 never does: its 1-px border deviation sits at 1/4 scale and the
     ~30-px receptive tail after it would carry it past a 32-px halo.
-
-    extra / in_stride: the level's true input is
-    cat([downsample_int(x, in_stride), extra], -1), computed by
-    ops/conv.conv_in_fused without building either.
     """
     x = policy.cast(x)
-    h, w = x.shape[1] // in_stride, x.shape[2] // in_stride
-    if extra is not None or in_stride != 1:
-        e0 = p.enc["level_0"]
-        n = conv_in_fused(e0.conv_in, x, extra, policy, in_stride)
-        n = res_block(e0.res0, n, policy)
-        skip0 = torch.relu(res_block(e0.res1, n, policy))
-        n = max_pool_2x2(skip0)
-    else:
-        n, skip0 = enc_level(p.enc["level_0"], x, policy)
+    h, w = x.shape[1], x.shape[2]
+    n, skip0 = enc_level(p.enc["level_0"], x, policy)
     n, skip1 = enc_level(p.enc["level_1"], n, policy)
     n, skip2 = enc_level(p.enc["level_2"], n, policy)
     n = bottleneck(p.bottleneck, n, policy)
@@ -170,8 +157,7 @@ def apply_level(p: Level, x: torch.Tensor, sf: int = 2, policy: Policy = F32,
 
 
 def apply(model: FISRnet, img: torch.Tensor, sf: int = 2, policy: Policy = F32,
-          final_stale_halo: int = 0, fast_upsample: bool = False,
-          fuse_input_glue: bool = False):
+          final_stale_halo: int = 0, fast_upsample: bool = False):
     """Full 3-level stack. img [B, H, W, 29] -> (pred_l1, pred_l2, pred_l3) at
     (H/2, H, 2H). The x1/4 and x1/2 inputs are the TF1-legacy bicubic, which
     for integer factors is subsampling.
@@ -185,19 +171,8 @@ def apply(model: FISRnet, img: torch.Tensor, sf: int = 2, policy: Policy = F32,
     are 1/4 to 1/16 of the window, so the folded upconv's 1-px border
     deviation would span 16 and more window px there and spread through
     pred_l1 and pred_l2 into every pixel of level 3.
-
-    fuse_input_glue: the x1/4 and x1/2 subsamplings become strided, dilated
-    input convs on img itself, and the [img | previous prediction] concats
-    of levels 2 and 3 become split convs (ops/conv.conv_in_fused). The same
-    function, summation order aside.
     """
     img = policy.cast(img)
-    if fuse_input_glue:
-        pred_l1 = apply_level(model.level_1, img, sf, policy, in_stride=4)
-        pred_l2 = apply_level(model.level_2, img, sf, policy, extra=pred_l1, in_stride=2)
-        pred_l3 = apply_level(model.level_3, img, sf, policy, stale_halo=final_stale_halo,
-                              fast_upsample=fast_upsample, extra=pred_l2)
-        return pred_l1, pred_l2, pred_l3
     pred_l1 = apply_level(model.level_1, downsample_int(img, 4), sf, policy)
     img_l2 = torch.cat([downsample_int(img, 2), pred_l1], dim=-1)
     pred_l2 = apply_level(model.level_2, img_l2, sf, policy)

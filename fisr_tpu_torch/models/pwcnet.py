@@ -18,7 +18,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from fisr_tpu_torch.device import resolve_device
-from fisr_tpu_torch.infer.halo import halo_map
 from fisr_tpu_torch.ops.conv import F32, Conv, Policy, conv2d, init_weights_
 from fisr_tpu_torch.ops.resize import resize_tf1
 from fisr_tpu_torch.ops.warp import dense_image_warp
@@ -131,21 +130,6 @@ def _deconv(p: Deconv, x: torch.Tensor, policy: Policy) -> torch.Tensor:
     return out.permute(0, 2, 3, 1)
 
 
-def _feature_grid(h: int, w: int):
-    """Patch grid for a pyramid level at extents of 4 M px and more, else None
-    (the JAX package's TPU-measured choice, kept so results match it)."""
-    if h * w < 4_000_000:
-        return None
-
-    def pick(n, target):
-        for g in (8, 6, 4, 3, 2):
-            if n % g == 0 and n // g >= target and n // g % 2 == 0:
-                return g
-        return 1
-    gh, gw = pick(h, 256), pick(w, 448)
-    return None if gh * gw == 1 else (gh, gw)
-
-
 def extract_features(p: PWCNet, x: torch.Tensor, cfg: PWCNetConfig,
                      policy: Policy = F32):
     """Siamese pyramid for one image batch: x [B, H, W, 3] -> [None, l1..lL]."""
@@ -153,16 +137,9 @@ def extract_features(p: PWCNet, x: torch.Tensor, cfg: PWCNetConfig,
     n = policy.cast(x)
     for lvl in range(1, cfg.pyr_lvls + 1):
         lp = p.feat[f"level_{lvl}"]
-
-        def block(t, lp=lp):
-            t = _leaky(conv2d(lp["a"], t, policy, stride=2))
-            t = _leaky(conv2d(lp["aa"], t, policy))
-            return _leaky(conv2d(lp["b"], t, policy))
-
-        grid = _feature_grid(n.shape[1], n.shape[2])
-        # halo 6 >= the block's receptive radius (5 input px), even so the
-        # stride-2 grid stays aligned
-        n = block(n) if grid is None else halo_map(block, n, grid, 6, (n.shape[1], n.shape[2]))
+        n = _leaky(conv2d(lp["a"], n, policy, stride=2))
+        n = _leaky(conv2d(lp["aa"], n, policy))
+        n = _leaky(conv2d(lp["b"], n, policy))
         out.append(n)
     return out
 
@@ -173,30 +150,6 @@ def _estimate(p: nn.ModuleDict, x: torch.Tensor, cfg: PWCNetConfig, policy: Poli
         act = _leaky(conv2d(p[f"conv{i}"], x, policy))
         x = torch.cat([act, x], dim=-1) if cfg.use_dense_cx else act
     return x, conv2d(p["pred"], x, policy)
-
-
-def _estimator_grid(h: int, w: int):
-    """Patch grid for the estimator above 500 k px, else None (as in JAX)."""
-    if h * w < 500_000:
-        return None
-
-    def pick(n, lo):
-        for g in (4, 3, 2):
-            if n % g == 0 and n // g >= lo:
-                return g
-        return 1
-    gh, gw = pick(h, 120), pick(w, 224)
-    return None if gh * gw == 1 else (gh, gw)
-
-
-def _estimate_tiled(p: nn.ModuleDict, x: torch.Tensor, cfg: PWCNetConfig, policy: Policy):
-    """_estimate, patch-tiled through halo_map where _estimator_grid says so;
-    halo 6 = the estimator's receptive radius (6 3x3 convs)."""
-    grid = _estimator_grid(x.shape[1], x.shape[2])
-    if grid is None:
-        return _estimate(p, x, cfg, policy)
-    return halo_map(lambda t: _estimate(p, t, cfg, policy), x, grid, 6,
-                    (x.shape[1], x.shape[2]))
 
 
 def _refine(p: nn.ModuleDict, feat: torch.Tensor, flow: torch.Tensor,
@@ -235,7 +188,7 @@ def apply_pyramids(model: PWCNet, c1, c2, cfg: PWCNetConfig = PWCNetConfig(),
             corr = _leaky(cv(c1[lvl], warped))
             x = torch.cat([corr, c1[lvl], up_flow, up_feat], dim=-1)
 
-        upfeat, flow = _estimate_tiled(model.flow[f"level_{lvl}"], x, cfg, policy)
+        upfeat, flow = _estimate(model.flow[f"level_{lvl}"], x, cfg, policy)
 
         if lvl != cfg.flow_pred_lvl:
             if cfg.use_res_cx:

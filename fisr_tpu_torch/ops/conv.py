@@ -30,7 +30,7 @@ from fisr_tpu_torch.ops.resize import resize_tf1, upsample2x_bilinear
 
 __all__ = [
     "Policy", "F32", "BF16", "Conv", "ResBlock", "EncLevel", "Bottleneck",
-    "DecLevel", "conv2d", "conv_in_fused", "res_block", "max_pool_2x2",
+    "DecLevel", "conv2d", "res_block", "max_pool_2x2",
     "enc_level", "bottleneck", "dec_level", "up_conv2x", "depth_to_space",
     "head_tail_conv", "init_weights_",
 ]
@@ -128,33 +128,6 @@ def conv2d(p: Conv, x: torch.Tensor, policy: Policy = F32, *, stride: int = 1,
         v = F.pad(v, (pw[0], pw[1], ph[0], ph[1]))
         pad = (0, 0)
     out = F.conv2d(v, p.weight.to(dt), p.bias.to(dt), stride, pad, dilation)
-    return out.permute(0, 2, 3, 1)
-
-
-def conv_in_fused(p: Conv, img: torch.Tensor, extra: torch.Tensor | None,
-                  policy: Policy = F32, img_stride: int = 1) -> torch.Tensor:
-    """`conv2d(p, cat([downsample_int(img, img_stride), extra], -1))` without
-    building the concat or the subsampled image (inference paths only).
-
-    Two rewrites of the same function, summation order aside:
-
-    * split conv: a conv is linear in its input channels, so the conv over
-      the concat is conv(img, w[:, :Ci]) + conv(extra, w[:, Ci:]); the bias is
-      added once, after the sum;
-    * fused downsample: a 3x3 SAME conv on img[::k, ::k] is the same conv on
-      the full image with stride k, dilation k and explicit padding (k, k):
-      output i reads x[ki-k], x[ki], x[ki+k], and the k zeros of padding
-      stand for the SAME pad of the subsampled grid.
-    """
-    dt = policy.compute_dtype
-    ci = img.shape[-1]
-    w = p.weight.to(dt)
-    k = img_stride
-    pad = (p.weight.shape[-1] - 1) // 2
-    out = F.conv2d(img.to(dt).permute(0, 3, 1, 2), w[:, :ci], None, k, pad * k, k)
-    if extra is not None:
-        out = out + F.conv2d(extra.to(dt).permute(0, 3, 1, 2), w[:, ci:], None, 1, pad)
-    out = out + p.bias.to(dt).view(1, -1, 1, 1)
     return out.permute(0, 2, 3, 1)
 
 

@@ -1,5 +1,5 @@
 """Port: the tiling autotuner (infer/autotune.py), its CLI (cli/tune.py) and
-fisr_grid='tuned' (infer/video.resolve_fisr_plan / resolve_fisr_grid) against
+fisr_grid='tuned' (infer/video.resolve_fisr_plan) against
 fisr_tpu.infer.autotune and fisr_tpu.infer.video.
 
 The candidate lists are equal to JAX's. 'tuned' resolves to the same plan in
@@ -20,7 +20,7 @@ from fisr_tpu.ops.conv import F32 as JF32
 from fisr_tpu.ops.conv import Policy as JPolicy
 from fisr_tpu_torch.infer import autotune, video
 from fisr_tpu_torch.infer.autotune import TuneCache, candidate_grids, padded_candidates, sweep
-from fisr_tpu_torch.infer.device import best_grid, padded_grid
+from fisr_tpu_torch.infer.device import padded_grid
 from fisr_tpu_torch.models.fisrnet import FISRnet
 from fisr_tpu_torch.ops.conv import BF16, F32
 
@@ -94,9 +94,9 @@ def test_tune_cache_roundtrip(tmp_path, model):
     grid = cache.tune(model, 96, 96, policy=F32, reps=1)
     assert 96 % (32 * grid[0]) == 0 and 96 % (32 * grid[1]) == 0
     fresh = TuneCache(path, device="cpu")
-    assert fresh.best(96, 96, "float32") == grid
-    assert fresh.best(128, 128, "float32") is None
-    assert fresh.best(96, 96, "bfloat16") is None
+    assert fresh.best_plan(96, 96, "float32") == (grid, (0, 0))
+    assert fresh.best_plan(128, 128, "float32") is None
+    assert fresh.best_plan(96, 96, "bfloat16") is None
     (key,) = json.loads(open(path).read())
     assert key == "cpu|96x96|float32|b32"
 
@@ -114,7 +114,6 @@ def test_shipped_cache_fallback_and_local_wins(tmp_path):
         ], "reps": 3}}, f)
     cache = TuneCache(local, shipped_path=shipped, device="cpu")
     assert cache.best_plan(1056, 1920) == ((4, 6), (96, 0))
-    assert cache.best(1056, 1920) == (3, 6)
     with open(local, "w") as f:
         json.dump({key: {"results": [
             {"grid": [2, 4], "pad": [0, 0], "sec": 0.19, "mode": "tiled"},
@@ -122,20 +121,19 @@ def test_shipped_cache_fallback_and_local_wins(tmp_path):
     cache = TuneCache(local, shipped_path=shipped, device="cpu")
     assert cache.best_plan(1056, 1920) == ((2, 4), (0, 0))
     cache = TuneCache(local, shipped_path=str(tmp_path / "missing.json"), device="cpu")
-    assert cache.best(1056, 1920) == (2, 4)
+    assert cache.best_plan(1056, 1920) == ((2, 4), (0, 0))
     assert not os.path.exists(autotune.SHIPPED_CACHE_PATH)
 
 
 def _resolved(h, w):
-    return [(video.resolve_fisr_plan(spec, h, w, pol, device="cpu"),
-             video.resolve_fisr_grid(spec, h, w, pol, device="cpu"))
+    return [video.resolve_fisr_plan(spec, h, w, pol, device="cpu")
             for spec in ("tuned", "auto", (2, 3)) for pol in (F32, BF16)]
 
 
 def _jresolved(h, w):
     import jax.numpy as jnp
 
-    return [(jvideo.resolve_fisr_plan(spec, h, w, pol), jvideo.resolve_fisr_grid(spec, h, w, pol))
+    return [jvideo.resolve_fisr_plan(spec, h, w, pol)
             for spec in ("tuned", "auto", (2, 3)) for pol in (JF32, JPolicy(jnp.bfloat16))]
 
 
@@ -145,7 +143,6 @@ def test_tuned_falls_back_like_jax_on_an_empty_cache(cache_path, hw):
     h, w = hw
     assert _resolved(h, w) == _jresolved(h, w)
     assert video.resolve_fisr_plan("tuned", h, w, F32, device="cpu") == padded_grid(h, w)
-    assert video.resolve_fisr_grid("tuned", h, w, F32, device="cpu") == best_grid(h, w)
 
 
 def test_tuned_reads_one_cache_file_like_jax(cache_path, model):
@@ -159,9 +156,8 @@ def test_tuned_reads_one_cache_file_like_jax(cache_path, model):
         {"grid": [1, 2], "pad": [0, 0], "sec": 0.23, "mode": "tiled"}], "reps": 3}
     with open(cache_path, "w") as f:
         json.dump(data, f)
-    assert video.resolve_fisr_grid("tuned", 96, 96, F32, device="cpu") == grid
+    assert video.resolve_fisr_plan("tuned", 96, 96, F32, device="cpu") == (grid, (0, 0))
     assert video.resolve_fisr_plan("tuned", 1056, 1920, F32, device="cpu") == ((4, 6), (96, 0))
-    assert video.resolve_fisr_grid("tuned", 1056, 1920, F32, device="cpu") == (1, 2)
     for hw in ((96, 96), (1056, 1920)):
         assert _resolved(*hw) == _jresolved(*hw)
 

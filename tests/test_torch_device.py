@@ -6,8 +6,8 @@ bound 1e-4 against JAX. Measured max |diff| (CPU): tiled_apply 1.5e-8,
 tiled_apply_padded 1.5e-8, staged_apply 3.7e-8 at most a level,
 run_level_tiled 3.0e-8, runners full 1.5e-8 / staged 2.6e-8 / tiled 1.5e-8,
 FastTiledRunner 1.9e-8; tiled_apply against the port's own
-TiledRunner(mode='padded') 1.9e-8 (bound 1e-5: the shrink, the folded
-upsample and the fused glue all leave the retained pixels alone). The
+TiledRunner(mode='padded') 1.9e-8 (bound 1e-5: the shrink and the folded
+upsample leave the retained pixels alone). The
 planning functions are equal.
 """
 
@@ -27,6 +27,7 @@ from fisr_tpu_torch.cli import _common as common
 from fisr_tpu_torch.convert import params
 from fisr_tpu_torch.convert.oracle import deterministic_tf_vars
 from fisr_tpu_torch.infer import device, tiled, video
+from fisr_tpu_torch.models import fisrnet
 from fisr_tpu_torch.ops.conv import F32
 
 torch.set_num_threads(1)
@@ -63,7 +64,6 @@ def test_plans_match_jax(hw):
     assert device.default_plans(h, w) == jdevice.default_plans(h, w)
     for spec in ("auto", (2, 2), [1, 3]):
         assert video.resolve_fisr_plan(spec, h, w, F32) == jvideo.resolve_fisr_plan(spec, h, w, JF32)
-        assert video.resolve_fisr_grid(spec, h, w, F32) == jvideo.resolve_fisr_grid(spec, h, w, JF32)
 
 
 def test_plans_at_the_video_sizes_and_their_errors(tmp_path, monkeypatch):
@@ -78,7 +78,6 @@ def test_plans_at_the_video_sizes_and_their_errors(tmp_path, monkeypatch):
 
     monkeypatch.setattr(autotune, "DEFAULT_CACHE_PATH", str(tmp_path / "none.json"))
     assert video.resolve_fisr_plan("tuned", 1056, 1920, F32, device="cpu") == ((4, 6), (96, 0))
-    assert video.resolve_fisr_grid("tuned", 1056, 1920, F32, device="cpu") == (3, 6)
 
 
 @pytest.mark.parametrize("spec", ["full", "auto", "tuned", "2,2", "4,6", "1, 3"])
@@ -155,6 +154,18 @@ def test_device_runner_matches_jax(small, mode):
     got = run(model, torch.from_numpy(x))
     assert not got.requires_grad
     _close(got, want)
+
+
+def test_full_runner_is_the_full_frame_window(small):
+    """make_device_runner('full') (the tuner's (1, 1) candidate, the
+    multi-device runner) runs the very FISRnet call of the video path's
+    full-frame window: one input path, equal bit for bit."""
+    _tree, model = small
+    x = torch.from_numpy(_inp(6, (1, 64, 128, 29)))
+    got = device.make_device_runner("full")(model, x)
+    with torch.no_grad():
+        want = fisrnet.apply(model, x)[2]
+    assert torch.equal(got, want)
 
 
 def test_device_runner_rejects_unknown_mode():

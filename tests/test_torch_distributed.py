@@ -25,10 +25,11 @@ measured here:
   difference 1.9e-8).
 * the loss against the JAX step on a (2, 1) mesh: rtol 2e-5 (measured
   2.9e-7), the bound of tests/test_torch_{train,pwc_train,joint}.py.
-* fit(mesh=) at full width, 2 epochs of 1 step: metrics.jsonl against a
-  single-process fit, rtol 1e-5 (measured 3.8e-7); the final parameters
-  within 2*lr a step (measured 1.0e-5: fit starts from glorot weights,
-  where more gradients are summation noise).
+* fit(mesh=) with its model at ch=8 (`_narrow_state`), 2 epochs of 1 step:
+  metrics.jsonl against a single-process fit, rtol 1e-5 (measured 1.3e-7;
+  3.8e-7 at full width); the final parameters within 2*lr a step (measured
+  8.9e-8; 1.0e-5 at full width: fit starts from glorot weights, where more
+  gradients are summation noise).
 """
 
 import datetime
@@ -391,7 +392,16 @@ def _fit_store():
 FIT_KW = dict(batch_size=2, val_batch_size=2, lr_type="no_decay", freq_display=1)
 
 
+def _narrow_state(seed, optimizer, device):
+    """fit's state at ch=8: fit builds the full-width model, whose 48 M
+    parameters made each rank take 2.6 GB of memory and the test 1.5 GB of
+    checkpoints, the suite's largest share of both; its data-parallel logic
+    does not depend on the width (full width: tests/test_torch_train.py)."""
+    return trainer.create_state(seed, optimizer, ch=8, device=device)
+
+
 def _fit_ranks(rank, root):
+    loop.create_state = _narrow_state  # this spawned rank's own module
     m = mesh.make_mesh(device="cpu")
     kw = dict(ckpt_dir=os.path.join(root, "ckpt"), log_dir=os.path.join(root, "log"), **FIT_KW)
     first = loop.fit(_fit_store(), epochs=1, mesh=m, **kw)
@@ -402,7 +412,7 @@ def _fit_ranks(rank, root):
                os.path.join(root, f"fit_{rank}.pt"))
 
 
-def test_fit_with_a_mesh_matches_single_process_fit_and_resumes(tmp_path):
+def test_fit_with_a_mesh_matches_single_process_fit_and_resumes(tmp_path, monkeypatch):
     """fit(mesh=) on 2 ranks, one epoch, then a second call that resumes
     from its checkpoint for a second epoch: the metrics.jsonl that rank 0
     alone writes against a single-process fit doing the same (rtol 1e-5, see
@@ -415,6 +425,7 @@ def test_fit_with_a_mesh_matches_single_process_fit_and_resumes(tmp_path):
     assert checkpoint.CheckpointManager(str(dp / "ckpt")).latest_step() == 2
 
     kw = dict(ckpt_dir=str(single / "ckpt"), log_dir=str(single / "log"), device="cpu", **FIT_KW)
+    monkeypatch.setattr(loop, "create_state", _narrow_state)
     loop.fit(_fit_store(), epochs=1, **kw)
     state = loop.fit(_fit_store(), epochs=2, **kw)
 

@@ -1,14 +1,16 @@
-"""Port: ops, halo tiling, PNG codec, device rules and import hygiene, each
-against the JAX package or its fixtures on the same numpy inputs.
+"""Port: ops, PNG codec, device rules and import hygiene, each against the
+JAX package or its fixtures on the same numpy inputs.
 
 Tolerance: f32 atol 1e-5. Measured max |diff| (CPU): conv2d 9.5e-7, head
 tail 4.8e-7, enc/dec levels 0, resize 0, colour 0 (on [0, 255] values),
 warp 0 against both JAX formulations and 6.1e-5 against the cv2 fixture
-(bound 1e-3, as the JAX test), halo_map 0; conv_in_fused 0 against JAX at
-strides 1, 2, 4 with and without `extra`, and 1.9e-6 against the port's own
-concat + subsample composition; up_conv2x and its weight fold 0 against
-JAX, 1.7e-6 against the port's upsample + conv on the interior; dec_level
-with fast_upsample 0 against JAX.
+(bound 1e-3, as the JAX test); the JAX package's input glue (conv_in_fused)
+against the port's subsample + concat + conv 0 without `extra` and at most
+1.9e-6 with it, at strides 1, 2, 4; the JAX package's halo-tiled PWC-Net
+feature block against the port's untiled block 0 in the patch interiors and
+up to 2.8 (activations up to 5.9) in the 2 px at the frame edge; up_conv2x
+and its weight fold 0 against JAX, 1.7e-6 against the port's upsample + conv
+on the interior; dec_level with fast_upsample 0 against JAX.
 """
 
 import ast
@@ -29,7 +31,6 @@ from fisr_tpu.ops import conv as jconv
 from fisr_tpu.ops import resize as jresize
 from fisr_tpu.ops import warp as jwarp
 from fisr_tpu_torch.convert.params import _load_tree_
-from fisr_tpu_torch.infer.halo import halo_map
 from fisr_tpu_torch.ops import color, conv, resize, warp
 
 torch.set_num_threads(1)
@@ -83,6 +84,9 @@ def test_enc_dec_levels_match_jax():
 @pytest.mark.parametrize("stride", [1, 2, 4])
 @pytest.mark.parametrize("with_extra", [False, True])
 def test_conv_in_fused_matches_jax_and_composition(stride, with_extra):
+    """The JAX package's input glue (a strided, dilated conv on the whole
+    image and a split conv over the concat, a TPU rewrite) against what the
+    port runs: subsample, concat, one conv. The same function."""
     ci, ce = 5, 4 if with_extra else 0
     p = jconv.init_conv(jax.random.PRNGKey(20), 3, ci + ce, 7)
     p["b"] = jnp.asarray(_x(21, (7,)))
@@ -93,15 +97,11 @@ def test_conv_in_fused_matches_jax_and_composition(stride, with_extra):
                                           img_stride=stride))
     c = _module(conv.Conv, p, ci + ce, 7)
     with torch.no_grad():
-        got = conv.conv_in_fused(c, torch.from_numpy(img),
-                                 None if extra is None else torch.from_numpy(extra),
-                                 img_stride=stride)
         sub = resize.downsample_int(torch.from_numpy(img), stride)
-        composed = conv.conv2d(c, sub if extra is None
-                               else torch.cat([sub, torch.from_numpy(extra)], -1))
+        got = conv.conv2d(c, sub if extra is None
+                          else torch.cat([sub, torch.from_numpy(extra)], -1))
     assert got.shape == want.shape == (2, 16 // stride, 24 // stride, 7)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
-    np.testing.assert_allclose(got.numpy(), composed.numpy(), rtol=0, atol=1e-5)
 
 
 def test_up_conv2x_matches_jax_and_composition_on_interior():
@@ -264,24 +264,38 @@ def test_warp_matches_cv2_fixture_and_is_differentiable():
 
 
 def test_halo_map_matches_jax():
-    p = jconv.init_conv(jax.random.PRNGKey(14), 3, 3, 4)
-    x = _x(15, (2, 16, 24, 3))
-    c = _module(conv.Conv, p, 3, 4)
+    """The JAX package runs PWC-Net's large stages through halo_map (a TPU
+    layout choice); the port runs them whole. Held here on PWC-Net's feature
+    block (three convs, the first stride 2, with biases): equal in the patch
+    interiors, and different only inside the `halo` px band at the frame
+    edge, where the tiled stage reads a zero ring in place of the activations
+    of its own SAME padding (a deliberate difference, ROADMAP Queue 3)."""
+    halo, hw = 6, (32, 48)
+    k = jax.random.split(jax.random.PRNGKey(14), 3)
+    ps = [jconv.init_conv(k[0], 3, 3, 8), jconv.init_conv(k[1], 3, 8, 8),
+          jconv.init_conv(k[2], 3, 8, 8)]
+    for i, p in enumerate(ps):
+        p["b"] = jnp.asarray(_x(16 + i, (8,)))
+    cs = [_module(conv.Conv, p, p["w"].shape[2], 8) for p in ps]
+    x = _x(15, (2, *hw, 3))
 
     def jf(t):
-        return jax.nn.leaky_relu(jconv.conv2d(p, t, stride=2), 0.1)
+        for i, p in enumerate(ps):
+            t = jax.nn.leaky_relu(jconv.conv2d(p, t, stride=2 if i == 0 else 1), 0.1)
+        return t
 
-    want = np.asarray(jhalo.halo_map(jf, jnp.asarray(x), (2, 2), 6, (16, 24)))
+    want = np.asarray(jhalo.halo_map(jf, jnp.asarray(x), (2, 2), halo, hw))
     with torch.no_grad():
-        got = halo_map(lambda t: torch.nn.functional.leaky_relu(conv.conv2d(c, t, stride=2), 0.1),
-                       torch.from_numpy(x), (2, 2), 6, (16, 24)).numpy()
-    assert got.shape == want.shape == (2, 8, 12, 4)
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
-    # a tuple out, as the tiled PWC estimator uses it; a half-scale input
-    pair = halo_map(lambda t: (t * 2, t[:, ::2, ::2] + 1),
-                    torch.from_numpy(x[:, ::2, ::2]), (2, 2), 4, (16, 24))
-    np.testing.assert_array_equal(pair[0].numpy(), x[:, ::2, ::2] * 2)
-    np.testing.assert_array_equal(pair[1].numpy(), x[:, ::4, ::4] + 1)
+        t = torch.from_numpy(x)
+        for i, c in enumerate(cs):
+            t = torch.nn.functional.leaky_relu(conv.conv2d(c, t, stride=2 if i == 0 else 1), 0.1)
+        got = t.numpy()
+    assert got.shape == want.shape == (2, 16, 24, 8)
+    band = halo // 2  # the halo at the block's output scale
+    diff = np.abs(got - want)
+    np.testing.assert_allclose(got[:, band:-band, band:-band], want[:, band:-band, band:-band],
+                               rtol=0, atol=1e-5)
+    assert diff[:, :band].max() > 1e-2 and diff[:, :, -band:].max() > 1e-2, diff.max()
 
 
 @pytest.mark.parametrize("seed", [0, 1])
