@@ -40,6 +40,7 @@ import numpy as np
 
 from fisr_tpu_torch.data.augment import apply_plan, scaled_size
 from fisr_tpu_torch.native import build
+from fisr_tpu_torch.utils import profiling
 
 __all__ = ["available", "decode_png", "decode_png_bytes", "decode_png_batch", "encode_png",
            "encode_png_bytes", "gather_rows", "extract_patches", "yuv2rgb_matlab_u8",
@@ -62,8 +63,9 @@ _SIGNATURES = {
     "fisr_png_decode": ([ctypes.c_void_p, _i64, _u8p, _i64, _i64p, ctypes.c_char_p], _int),
     "fisr_png_decode_batch": ([ctypes.c_char_p, _i64, _i64, _u8p, _i64, _i64, _i32p, _i64p,
                                ctypes.c_char_p], _i64),
+    "fisr_png_bound": ([_i64, _i64], _i64),
     "fisr_png_encode": ([_u8p, _i64, _i64, _int, _u8p, _i64, _i64p], _i64),
-    "fisr_png_write": ([ctypes.c_char_p, _u8p, _i64, _i64], _int),
+    "fisr_png_write": ([ctypes.c_char_p, _u8p, _i64, _i64, _i64p], _int),
     "fisr_zstd_decompress_batch": ([ctypes.c_void_p, _i64p, ctypes.c_void_p, _i64p, _i64, _int,
                                     _i64p, _i32p, ctypes.c_char_p], _i64),
     "fisr_flow_sample": ([_u8p, ctypes.c_void_p, _i64, _i64, _i64, _i64, _i64, _i64, _int, _int,
@@ -435,35 +437,44 @@ def _frame(img: np.ndarray) -> np.ndarray:
     return a
 
 
+def _count_png(h: int, w: int, size: int, stored: int) -> None:
+    profiling.count("png.frames")
+    profiling.count("png.raw_bytes", h * (1 + 3 * w))
+    profiling.count("png.bytes", size)
+    profiling.count("png.stored_strips", stored)
+
+
 def encode_png_bytes(img: np.ndarray, threads: Optional[int] = None) -> bytes:
-    """u8 [H, W, 3] as the bytes of an 8-bit RGB PNG in data/png_io's format
-    (filter 0, zlib level 1), deflated in row strips on `threads` threads
-    (default: the host's cores); with threads=1 png_io.encode_png's bytes when
-    both link the same zlib, else the same pixels."""
+    """u8 [H, W, 3] as the bytes of an 8-bit RGB PNG, deflated by the
+    runtime's own coder in strips of 32 rows (unfiltered or Up-filtered) on up
+    to `threads` threads of its kept pool (default: the host's cores). The
+    same bytes at every thread count; png_io.encode_png's pixels. Counts
+    `png.*` (frames, raw and PNG bytes, strips stored)."""
     a = _frame(img)
     h, w, _ = a.shape
-    need = ctypes.c_int64(0)
-    cap = h * (1 + 3 * w) + (h * (1 + 3 * w) >> 8) + 1024  # stored blocks' worst case
-    for _ in range(2):
-        out = np.empty(cap, np.uint8)
-        n = _lib().fisr_png_encode(_ptr(a), h, w, threads or 0, _ptr(out), cap,
-                                   ctypes.byref(need))
-        if n != -1:
-            break
-        cap = need.value
+    lib = _lib()
+    out = np.empty(lib.fisr_png_bound(h, w), np.uint8)
+    stored = ctypes.c_int64(0)
+    n = lib.fisr_png_encode(_ptr(a), h, w, threads or 0, _ptr(out), out.size,
+                            ctypes.byref(stored))
     if n < 0:
-        raise MemoryError("zlib failed to compress the PNG frame")
+        raise MemoryError("no memory to encode the PNG frame")
+    _count_png(h, w, n, stored.value)
     return out[:n].tobytes()
 
 
 def encode_png(img: np.ndarray, path) -> None:
-    """Write u8 [H, W, 3] to `path` as an 8-bit RGB PNG (data/png_io.write_png)."""
+    """Write u8 [H, W, 3] to `path` as an 8-bit RGB PNG (data/png_io.write_png's
+    pixels, encode_png_bytes' bytes)."""
     a = _frame(img)
-    rc = _lib().fisr_png_write(os.fsencode(path), _ptr(a), a.shape[0], a.shape[1])
+    stored = ctypes.c_int64(0)
+    rc = _lib().fisr_png_write(os.fsencode(path), _ptr(a), a.shape[0], a.shape[1],
+                               ctypes.byref(stored))
     if rc == -2:
-        raise MemoryError("zlib failed to compress the PNG frame")
+        raise MemoryError("no memory to encode the PNG frame")
     if rc:
         raise OSError(rc, os.strerror(rc), str(path))
+    _count_png(a.shape[0], a.shape[1], os.path.getsize(path), stored.value)
 
 
 # ---- plain versions ---------------------------------------------------------

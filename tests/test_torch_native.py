@@ -7,14 +7,16 @@ Everything is exact: crc32c, the row gather and patches bit for bit; the
 colour conversions on all 2^24 u8 triples, each constant set against its
 numpy version and its JAX function; PNG decode pixel for pixel against PIL,
 png_io and the JAX decoder, with png_io's exceptions and messages for
-malformed input; PNG encode pixel for pixel on one and several threads, and
-png_io's bytes on one thread when both link the same zlib.
+malformed input; PNG encode pixel for pixel through four decoders, with the
+same bytes at every thread count.
 """
 
 import ctypes
 import io
 import os
 import struct
+import sys
+import threading
 import zlib
 
 import numpy as np
@@ -29,7 +31,7 @@ from fisr_tpu_torch.convert import tensor_bundle
 from fisr_tpu_torch.data import png_io
 from fisr_tpu_torch.native import build
 from fisr_tpu_torch.ops import color
-from fisr_tpu_torch.utils import tb_writer
+from fisr_tpu_torch.utils import profiling, tb_writer
 
 torch.set_num_threads(1)
 PLAIN = native.plain_versions()
@@ -350,24 +352,134 @@ def test_decode_png_batch_is_stacked_read_png(tmp_path):
 
 # ---- PNG encode -------------------------------------------------------------
 
-@pytest.mark.parametrize("shape", [(1, 1), (6, 5), (333, 517), (640, 900)])
-def test_encode_is_pixel_exact_on_one_and_several_threads(tmp_path, shape):
-    rng = np.random.default_rng(7)
-    h, w = shape
-    img = (rng.integers(0, 24, (h, w, 3)) + np.arange(w)[None, :, None] // 5).astype(np.uint8)
-    plain = png_io.encode_png(img)
-    for threads in (1, 2, 3, 8, None):
-        data = native.encode_png_bytes(img, threads=threads)
-        assert np.array_equal(png_io.decode_png(data), img), threads
-        assert np.array_equal(np.asarray(Image.open(io.BytesIO(data)).convert("RGB")), img)
-        assert np.array_equal(native.decode_png_bytes(data), img)
-        if threads == 1 and native.zlib_version() == zlib.ZLIB_RUNTIME_VERSION:
-            assert data == plain  # png_io.encode_png's bytes
-        if threads is None:  # to a file: the same bytes
-            native.encode_png(img, tmp_path / "x.png")
-            assert (tmp_path / "x.png").read_bytes() == data
-    if h * (1 + 3 * w) >= 512 << 10:  # large enough for several strips
-        assert native.encode_png_bytes(img, threads=8) != native.encode_png_bytes(img, threads=1)
+def _scene_4k() -> np.ndarray:
+    """A 2112x3840 output-sized frame: the benchmark's scene at 1056x1920,
+    upscaled 2x (bicubic)."""
+    from fisrbench.harness import scene
+
+    g = torch.Generator().manual_seed(3240000011)
+    yuv = scene.clip(g, 1, 1056, 1920, 6.0, 8, (60, 200), (4.0, 16.0), "cpu")[0]
+    up = torch.nn.functional.interpolate(yuv.permute(2, 0, 1)[None].float(), scale_factor=2,
+                                         mode="bicubic", align_corners=False)
+    return up[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).numpy()
+
+
+def _ramp(h, w, seed=7) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 24, (h, w, 3)) + np.arange(w)[None, :, None] // 5).astype(np.uint8)
+
+
+ENCODE_CASES = {
+    "1x1": lambda: _ramp(1, 1),
+    "6x5": lambda: _ramp(6, 5),
+    "333x517": lambda: _ramp(333, 517),
+    "640x900": lambda: _ramp(640, 900),
+    "scene_2112x3840": _scene_4k,
+    "constant": lambda: np.full((100, 257, 3), (17, 200, 3), np.uint8),  # runs alone
+    "noise": lambda: np.random.default_rng(8).integers(0, 256, (70, 300, 3), dtype=np.uint8),
+    "width_1": lambda: _ramp(77, 1),
+    "height_1": lambda: _ramp(1, 1000),
+    "strip_boundary": lambda: _ramp(64, 45),  # two strips of 32 rows, the second full
+}
+
+
+def _idat_rows(data: bytes, h: int, w: int) -> np.ndarray:
+    """The inflated IDAT stream of a PNG (zlib.decompress checks its adler32)
+    as [h, 1 + 3 w] rows."""
+    pos, idat = 8, b""
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        if data[pos + 4:pos + 8] == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    return np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+
+
+@pytest.mark.parametrize("case", list(ENCODE_CASES))
+def test_encode_is_pixel_exact_on_one_and_several_threads(tmp_path, case):
+    from fisrbench.reference import png as ref_png
+
+    img = ENCODE_CASES[case]()
+    h, w, _ = img.shape
+    data = native.encode_png_bytes(img, threads=1)
+    for threads in (2, 3, 8, None, 1):  # the same bytes at every thread count, and again
+        assert native.encode_png_bytes(img, threads=threads) == data, threads
+    native.encode_png(img, tmp_path / "x.png")
+    assert (tmp_path / "x.png").read_bytes() == data
+    assert np.array_equal(png_io.decode_png(data), img)
+    assert np.array_equal(np.asarray(Image.open(io.BytesIO(data)).convert("RGB")), img)
+    assert np.array_equal(native.decode_png_bytes(data), img)
+    assert np.array_equal(ref_png.decode(data), img)
+    assert set(np.unique(_idat_rows(data, h, w)[:, 0])) <= {0, 1, 2}
+    if case == "noise":  # no coded strip is smaller than its rows
+        assert len(data) > h * (1 + 3 * w)
+
+
+def test_encode_from_more_threads_than_cores_gives_each_caller_its_bytes():
+    """Callers on 16 threads at once share the runtime's kept pool (one run
+    at a time, its threads capped per call): every call returns its frame's
+    bytes, and no call hangs."""
+    frames = [_ramp(96 + 32 * (k % 3), 200 + 7 * k, seed=k) for k in range(16)]
+    want = [native.encode_png_bytes(f, threads=1) for f in frames]
+    got, errors = [None] * 16, []
+
+    def call(k):
+        try:
+            for _ in range(3):
+                got[k] = native.encode_png_bytes(frames[k], threads=(None, 2, 3, 8)[k % 4])
+                assert got[k] == want[k]
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=call, args=(k,)) for k in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors and got == want
+
+
+def test_encode_counts_frames_bytes_and_stored_strips(tmp_path):
+    def png_counters():
+        c = profiling.totals()["counters"]
+        return {k: c.get(f"png.{k}", 0) for k in ("frames", "raw_bytes", "bytes", "stored_strips")}
+
+    smooth, noise = ENCODE_CASES["640x900"](), ENCODE_CASES["noise"]()
+    before = png_counters()
+    data = native.encode_png_bytes(smooth)
+    native.encode_png(noise, tmp_path / "noise.png")
+    after = png_counters()
+    size = (tmp_path / "noise.png").stat().st_size
+    assert after["frames"] - before["frames"] == 2
+    assert after["raw_bytes"] - before["raw_bytes"] == 640 * (1 + 3 * 900) + 70 * (1 + 3 * 300)
+    assert after["bytes"] - before["bytes"] == len(data) + size
+    assert after["stored_strips"] - before["stored_strips"] == 3  # the noise's 3 strips, stored
+    before = after
+    native.encode_png_bytes(smooth, threads=2)
+    after = png_counters()
+    assert after["bytes"] - before["bytes"] == len(data)
+    assert after["stored_strips"] == before["stored_strips"]  # its strips are all coded
+
+
+def test_benchmark_reads_the_png_bytes_counter_as_mb_a_frame(monkeypatch):
+    from fisrbench.harness.manifest import Manifest
+
+    read = Manifest().reader("png_mb_per_frame.video")
+    counters = {"video.frames": 30, "png.bytes": 450_000_000}
+    monkeypatch.setattr(profiling, "totals", lambda: {"spans": {}, "counters": counters})
+    assert read({}) == pytest.approx(15.0, rel=1e-12)  # 450e6 bytes / 30 frames
+    del counters["png.bytes"]  # a program that does not count the bytes
+    assert read({}) is None
+    counters.update({"video.frames": 0, "png.bytes": 5})
+    assert read({}) is None
+    monkeypatch.delattr(profiling, "totals")  # a program with no recorder
+    assert read({}) is None
 
 
 def test_encode_raises_what_png_io_raises(tmp_path):
@@ -381,4 +493,5 @@ def test_encode_raises_what_png_io_raises(tmp_path):
         native.encode_png(np.zeros((4, 4, 3), np.uint8), tmp_path / "no" / "x.png")
     assert str(got.value) == str(plain.value)
     floats = np.full((3, 2, 3), 7.9)  # cast as np.asarray(..., np.uint8) does
-    assert native.encode_png_bytes(floats, threads=1) == png_io.encode_png(floats)
+    assert np.array_equal(native.decode_png_bytes(native.encode_png_bytes(floats, threads=1)),
+                          png_io.decode_png(png_io.encode_png(floats)))
