@@ -1207,6 +1207,7 @@ def phase_train(tmp):
     from fisr_tpu_torch.train import trainer
     from fisr_tpu_torch.train.checkpoint import CheckpointManager
     from fisr_tpu_torch.train.loop import fit
+    from fisr_tpu_torch.utils import profiling
 
     steps, batch_size = 6, 8
     store = synthetic_store(n_samples=steps * batch_size + 2, h=TRAIN_PATCH, w=TRAIN_PATCH,
@@ -1217,12 +1218,16 @@ def phase_train(tmp):
     reset_launches(kernel)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    counted = profiling.totals()["counters"].get("train.fisr_steps", 0)
     t0 = time.perf_counter()
     state = fit(store, epochs=1, **kw)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     peak_fit = torch.cuda.max_memory_allocated() / 2**30
     require_launches(kernel, "fit (FISRnet has no kernel)", want=0)
+    counted = profiling.totals()["counters"].get("train.fisr_steps", 0) - counted
+    if counted != steps:
+        raise AssertionError(f"fit ran {steps} steps, the counter train.fisr_steps {counted}")
     with open(os.path.join(logs, "metrics.jsonl")) as f:
         rec = json.loads(f.read().splitlines()[-1])
     if state.step != steps or rec["step"] != steps or not np.isfinite(list(rec.values())).all():
@@ -1231,7 +1236,8 @@ def phase_train(tmp):
     if mgr.latest_step() != steps:
         raise AssertionError(f"fit left checkpoint step {mgr.latest_step()}, want {steps}")
     log(f"[train] fit: {steps} steps of batch {batch_size} ({TRAIN_PATCH}x{TRAIN_PATCH} patches, "
-        f"bf16) + validation + checkpoint in {seconds:.2f} s, peak {peak_fit:.2f} GiB; epoch means "
+        f"bf16; train.fisr_steps counted {counted}) + validation + checkpoint in "
+        f"{seconds:.2f} s, peak {peak_fit:.2f} GiB; epoch means "
         f"total_loss {rec['total_loss']:.6f}, train_PSNR {rec['train_PSNR']:.3f}, "
         f"val_PSNR {rec['val_PSNR']:.3f}")
     # a second call resumes: nothing is left of epoch 0, so it returns what it restored

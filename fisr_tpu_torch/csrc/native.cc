@@ -1128,7 +1128,9 @@ uint32_t fisr_crc32c(const uint8_t* p, int64_t n, uint32_t crc) {
 // out[i] = src[idx[i]], rows of row_bytes; indices checked by the caller.
 void fisr_gather_rows(const uint8_t* src, int64_t row_bytes, const int64_t* idx, int64_t n,
                       uint8_t* out) {
-  parallel_for(n, 0, [&](int64_t i) {
+  // on the kept threads: a batch is six calls of a few rows each, where
+  // starting a thread a row cost more than its copy
+  Pool::run(n, [&](int64_t i) {
     std::memcpy(out + i * row_bytes, src + idx[i] * row_bytes, row_bytes);
   });
 }

@@ -1,5 +1,5 @@
 """In-memory training store + batch iterator (copy of fisr_tpu/data/dataset.py;
-numpy only).
+numpy arrays, with the batch gather's span and counter of utils/profiling).
 
 Mirrors the reference's host-RAM data strategy (FISRnet.py:175-229): all six
 training arrays are loaded up front, flows are normalized by /H/2 (H = patch
@@ -22,6 +22,7 @@ import numpy as np
 from fisr_tpu_torch.data import flo as flo_io
 from fisr_tpu_torch.data import matio
 from fisr_tpu_torch.native import gather_rows
+from fisr_tpu_torch.utils import profiling
 
 Batch = Dict[str, np.ndarray]
 
@@ -77,7 +78,9 @@ class TrainStore:
     def batches(self, batch_size: int, epoch_seed: int,
                 shard_index: int = 0, shard_count: int = 1) -> Iterator[Batch]:
         """Shuffled epoch of train batches (per-epoch permutation like
-        FISRnet.py:628); optional contiguous sharding for multi-host DP."""
+        FISRnet.py:628); optional contiguous sharding for multi-host DP.
+        Each batch's gather is the span `data.store_batch`, and each batch
+        yielded counts one `data.store_batches` (utils/profiling)."""
         rng = np.random.default_rng(epoch_seed)
         perm = rng.permutation(self.train_size)
         n = self.num_batches(batch_size)
@@ -85,14 +88,17 @@ class TrainStore:
         hi = (n // shard_count) * (shard_index + 1) if shard_index < shard_count - 1 else n
         for i in range(lo, hi):
             idx = perm[batch_size * i : batch_size * (i + 1)].astype(np.int64)
-            yield {
-                "data": gather_rows(self._split(self.data, False), idx),
-                "label": gather_rows(self._split(self.label, False), idx),
-                "flow": gather_rows(self._split(self.flow, False), idx),
-                "flow_ss2": gather_rows(self._split(self.flow_ss2, False), idx),
-                "warp": gather_rows(self._split(self.warp, False), idx),
-                "warp_ss2": gather_rows(self._split(self.warp_ss2, False), idx),
-            }
+            with profiling.span("data.store_batch"):
+                batch = {
+                    "data": gather_rows(self._split(self.data, False), idx),
+                    "label": gather_rows(self._split(self.label, False), idx),
+                    "flow": gather_rows(self._split(self.flow, False), idx),
+                    "flow_ss2": gather_rows(self._split(self.flow_ss2, False), idx),
+                    "warp": gather_rows(self._split(self.warp, False), idx),
+                    "warp_ss2": gather_rows(self._split(self.warp_ss2, False), idx),
+                }
+            profiling.count("data.store_batches")
+            yield batch
 
     def val_batches(self, batch_size: int) -> Iterator[Batch]:
         n = self.val_size // batch_size

@@ -34,10 +34,11 @@ from fisr_tpu_torch.train.losses import LossWeights
 from fisr_tpu_torch.train.trainer import (TrainState, batch_to_device, create_state,
                                           device_of, forward_windows, make_train_step,
                                           make_val_step, tf_adam)
+from fisr_tpu_torch.utils import profiling
 from fisr_tpu_torch.utils.tb_writer import TBLogger
 from fisr_tpu_torch.utils.watchdog import Heartbeat
 
-__all__ = ["fit", "prefetch_to_device", "build_schedule", "read_metrics"]
+__all__ = ["fit", "train_epoch", "prefetch_to_device", "build_schedule", "read_metrics"]
 
 
 def prefetch_to_device(batch_iter, device, size: int = 2, sharding=None):
@@ -93,6 +94,32 @@ def read_metrics(metrics: dict) -> dict:
     on the device instead of one per metric."""
     values = torch.stack([v.float() for v in metrics.values()]).tolist()
     return dict(zip(metrics, values))
+
+
+def train_epoch(state: TrainState, step_fn, batches, *, start: int = 0, epoch: int = 0,
+                iters: int = 0, freq_display: int = 100, t_start: float = 0.0,
+                writer: bool = True, hb: Optional[Heartbeat] = None):
+    """`fit`'s body over one epoch's batches: each batch's step, its metrics
+    read back in one wait on the device (the span `train.metrics_read`),
+    added to the epoch's sums, a heartbeat, and every `freq_display`-th
+    batch (counted from `start`) the console line when `writer`.
+    Returns (state, {metric: sum over the batches}, batches run)."""
+    sums, count = {}, 0
+    for idx, batch in enumerate(batches, start=start):
+        state, m = step_fn(state, batch)
+        count += 1
+        with profiling.span("train.metrics_read"):
+            m = read_metrics(m)
+        for k, v in m.items():
+            sums[k] = sums.get(k, 0.0) + v
+        if hb is not None:
+            hb.beat()  # after the read-back = real device progress
+        if writer and idx % freq_display == 0:
+            print(f"Epoch: [{epoch:3d}], [{idx:4d}/{iters:4d}], "
+                  f"time: {(time.time() - t_start) / 60:4.2f}(min), "
+                  f"train_PSNR: {m['train_PSNR']:.3f}, "
+                  f"total_loss: {m['total_loss']:.6f}", flush=True)
+    return state, sums, count
 
 
 def fit(
@@ -177,7 +204,6 @@ def fit(
         # is no longer hung and masks the real error
         try:
             for epoch in range(start_epoch, epochs):
-                sums, count = {}, 0
                 batches = store.batches(batch_size, epoch_seed=seed + epoch)
                 # mid-epoch resume (FISRnet.py:596-606): the epoch permutation is
                 # epoch-seeded, so skipping the first `start_batch` draws continues
@@ -186,19 +212,9 @@ def fit(
                 if skip:
                     batches = itertools.islice(batches, skip, None)
                 batches = prefetch_to_device(batches, dev, sharding=batch_sharding)
-                for idx, batch in enumerate(batches, start=skip):
-                    state, m = step_fn(state, batch)
-                    count += 1
-                    m = read_metrics(m)
-                    for k, v in m.items():
-                        sums[k] = sums.get(k, 0.0) + v
-                    if hb is not None:
-                        hb.beat()  # after the read-back = real device progress
-                    if writer and idx % freq_display == 0:
-                        print(f"Epoch: [{epoch:3d}], [{idx:4d}/{iters:4d}], "
-                              f"time: {(time.time() - t_start) / 60:4.2f}(min), "
-                              f"train_PSNR: {m['train_PSNR']:.3f}, "
-                              f"total_loss: {m['total_loss']:.6f}", flush=True)
+                state, sums, count = train_epoch(
+                    state, step_fn, batches, start=skip, epoch=epoch, iters=iters,
+                    freq_display=freq_display, t_start=t_start, writer=writer, hb=hb)
                 epoch_means = {k: v / max(count, 1) for k, v in sums.items()}
 
                 val_sums, val_count = {}, 0

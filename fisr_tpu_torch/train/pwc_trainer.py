@@ -25,7 +25,6 @@ import itertools
 import json
 import os
 import time
-import weakref
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -43,8 +42,8 @@ from fisr_tpu_torch.train import schedule as sched
 from fisr_tpu_torch.train.checkpoint import CheckpointManager
 from fisr_tpu_torch.train.loop import prefetch_to_device
 from fisr_tpu_torch.train.pwc_loss import epe, pwcnet_loss
-from fisr_tpu_torch.train.trainer import (TFAdam, TrainState, batch_to_device, device_of,
-                                          tf_adam)
+from fisr_tpu_torch.train.trainer import (TFAdam, TrainState, _StepGraph, batch_to_device,
+                                          device_of, tf_adam)
 from fisr_tpu_torch.utils import profiling
 from fisr_tpu_torch.utils.flow_viz import flow_panels, flow_to_img
 from fisr_tpu_torch.utils.tb_writer import TBLogger
@@ -79,18 +78,18 @@ def make_pwc_train_step(cfg: Optional[pwcnet.PWCNetConfig] = None,
     (utils/profiling): `train.steps` every call, `train.graph_captures`,
     `train.graph_replays`."""
 
-    def forward_backward(model, batch) -> torch.Tensor:
+    def forward_backward(model, batch) -> Dict[str, torch.Tensor]:
         _, pyr = pwcnet.apply(model, batch["x"][:, 0], batch["x"][:, 1],
                               cfg or model.cfg, policy)
         loss = pwcnet_loss(batch["y"], pyr, list(model.parameters()), mode=loss_mode,
                            gamma=gamma, q=q, epsilon=epsilon)
         loss.backward()
-        return loss.detach()
+        return {"loss": loss.detach()}
 
     def eager(state: TrainState, batch) -> Dict:
         model, opt = state.model, state.optimizer
         opt.zero_grad(set_to_none=True)
-        metrics = {"loss": forward_backward(model, batch)}
+        metrics = forward_backward(model, batch)
         if mesh is not None:
             average_gradients_(model.parameters(), mesh)
             metrics = mean_metrics(metrics, mesh)
@@ -111,109 +110,6 @@ def make_pwc_train_step(cfg: Optional[pwcnet.PWCNetConfig] = None,
         return state, metrics
 
     return step_fn
-
-
-class _StepGraph:
-    """A training step as one CUDA graph, after torch.cuda.graphs' recipe for
-    a whole network: eager warm-up calls on a side stream, the gradients set
-    to None before the capture so that the backward makes them in the
-    graph's memory pool, then one replay a step.
-
-    The graph is bound to what its capture baked in: the model and optimizer
-    themselves (held by weak reference and compared with `is`, so a new
-    state never passes for a freed one whose memory it reuses), the address
-    of every tensor the replay reads or writes outside its pool (parameters,
-    moments, the optimizer's device scalars), the batch's shapes and dtypes,
-    and the numeric flags that choose cuDNN's and cuBLAS's kernels; the
-    configuration and policy belong to the step function that owns this
-    object. A call under anything else drops the graph and runs eagerly, and
-    the third call in a row under the same binding captures anew.
-
-    A replay copies the batch into the graph's input tensors, writes the
-    optimizer's learning rate and corrections (`TFAdam.begin_step`) and
-    launches the graph, all on the current stream. Before enqueuing a step
-    the host waits for the step two before it (a ring of blocking events),
-    so it runs at most two steps ahead of the card and sleeps, instead of
-    spinning, while it waits."""
-
-    CAPTURE_AT = 3  # the call, under one binding, that captures
-    AHEAD = 2  # steps the host may enqueue before the card has finished them
-
-    def __init__(self, forward_backward, eager):
-        self.forward_backward, self.eager = forward_backward, eager
-        self.owner, self.key, self.calls = None, None, 0
-        self.graph = self.inputs = self.loss = None
-        self.done, self.n = None, 0
-
-    @staticmethod
-    def _key(state: TrainState, batch) -> tuple:
-        model, opt = state.model, state.optimizer
-        baked = [*model.parameters(),
-                 *(opt.state[p][f] for g in opt.param_groups for p in g["params"]
-                   for f in ("mu", "nu")),
-                 *itertools.chain.from_iterable(opt._scalars)]
-        return (tuple(t.data_ptr() for t in baked),
-                tuple((k, tuple(v.shape), v.dtype, v.device) for k, v in sorted(batch.items())),
-                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
-                torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
-
-    def _bind(self, state: TrainState, batch) -> bool:
-        """Whether the calls so far were under this state and batch's binding;
-        if not, the graph is dropped and this binding starts anew."""
-        key = self._key(state, batch)
-        if (self.owner is not None and self.owner[0]() is state.model
-                and self.owner[1]() is state.optimizer and key == self.key):
-            return True
-        self._drop()
-        self.owner = (weakref.ref(state.model), weakref.ref(state.optimizer))
-        self.key, self.calls = key, 0
-        return False
-
-    def _drop(self) -> None:
-        for ev in self.done or ():
-            ev.synchronize()  # no replay of the graph is left in flight
-        self.graph = self.inputs = self.loss = None
-
-    def _warm_up(self, state: TrainState, batch) -> Dict:
-        here = torch.cuda.current_stream()
-        side = torch.cuda.Stream()
-        side.wait_stream(here)
-        with torch.cuda.stream(side):
-            metrics = self.eager(state, batch)
-        here.wait_stream(side)
-        return metrics
-
-    def _capture(self, state: TrainState, batch) -> None:
-        model, opt = state.model, state.optimizer
-        self.inputs = {k: torch.empty_like(v) for k, v in batch.items()}
-        opt.zero_grad(set_to_none=True)
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g, capture_error_mode="thread_local"):
-            self.loss = self.forward_backward(model, self.inputs)
-            opt.update()
-        self.graph = g
-        profiling.count("train.graph_captures")
-
-    def __call__(self, state: TrainState, batch) -> Dict:
-        self._bind(state, batch)
-        self.calls += 1
-        if self.graph is None and self.calls < self.CAPTURE_AT:
-            return self._warm_up(state, batch)
-        if self.done is None:
-            self.done = [torch.cuda.Event(blocking=True) for _ in range(self.AHEAD)]
-        ring = self.done[self.n % self.AHEAD]
-        ring.synchronize()  # the step AHEAD before this one has finished
-        if self.graph is None:
-            self._capture(state, batch)
-        for k, v in batch.items():
-            self.inputs[k].copy_(v)
-        state.optimizer.begin_step()
-        self.graph.replay()
-        metrics = {"loss": self.loss.clone()}
-        ring.record()
-        self.n += 1
-        profiling.count("train.graph_replays")
-        return metrics
 
 
 def make_pwc_eval_step(cfg: Optional[pwcnet.PWCNetConfig] = None, policy: Policy = F32):

@@ -9,7 +9,8 @@ and the rows are split again for the loss terms.
 
 The JAX package keeps (params, opt_state, step) in a pytree and returns a
 new one from a jitted step. Here the state is a module, its optimizer and an
-integer step; a step runs eagerly and updates them in place.
+integer step; a step updates them in place, eagerly, or on a card as one
+replayed CUDA graph (`_StepGraph`, shared with the PWC-Net trainer).
 
 Optimizer parity: `TFAdam` is tf.train.AdamOptimizer (FISRnet.py:489-491),
 which is NOT `torch.optim.Adam`: see the class.
@@ -19,6 +20,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
+import weakref
 from typing import Callable, Dict, Tuple, Union
 
 import numpy as np
@@ -32,6 +35,7 @@ from fisr_tpu_torch.ops.metrics import psnr_image
 from fisr_tpu_torch.ops.resize import downsample_int
 from fisr_tpu_torch.ops.seq import groups_to_overlap, split_seq_dim, stack_windows
 from fisr_tpu_torch.train.losses import LossWeights, l2_loss, temporal_loss
+from fisr_tpu_torch.utils import profiling
 
 Batch = Dict[str, torch.Tensor]
 LearningRate = Union[float, Callable[[int], float]]
@@ -213,10 +217,116 @@ def _gt_pyramid(label: torch.Tensor):
     )
 
 
+class _StepGraph:
+    """A training step as one CUDA graph, after torch.cuda.graphs' recipe for
+    a whole network: eager warm-up calls on a side stream, the gradients set
+    to None before the capture so that the backward makes them in the
+    graph's memory pool, then one replay a step.
+
+    The graph is bound to what its capture baked in: the model and optimizer
+    themselves (held by weak reference and compared with `is`, so a new
+    state never passes for a freed one whose memory it reuses), the address
+    of every tensor the replay reads or writes outside its pool (parameters,
+    moments, the optimizer's device scalars), the batch's shapes and dtypes,
+    and the numeric flags that choose cuDNN's and cuBLAS's kernels; the
+    configuration and policy belong to the step function that owns this
+    object. A call under anything else drops the graph and runs eagerly, and
+    the third call in a row under the same binding captures anew.
+
+    `forward_backward(model, batch)` returns the step's metrics, a dict of
+    detached tensors; a replay returns copies of them, so each keeps its
+    step's values. A replay copies the batch into the graph's input tensors,
+    writes the optimizer's learning rate and corrections
+    (`TFAdam.begin_step`) and launches the graph, all on the current stream. Before enqueuing a step
+    the host waits for the step two before it (a ring of blocking events),
+    so it runs at most two steps ahead of the card and sleeps, instead of
+    spinning, while it waits."""
+
+    CAPTURE_AT = 3  # the call, under one binding, that captures
+    AHEAD = 2  # steps the host may enqueue before the card has finished them
+
+    def __init__(self, forward_backward, eager):
+        self.forward_backward, self.eager = forward_backward, eager
+        self.owner, self.key, self.calls = None, None, 0
+        self.graph = self.inputs = self.out = None
+        self.done, self.n = None, 0
+
+    @staticmethod
+    def _key(state: TrainState, batch) -> tuple:
+        model, opt = state.model, state.optimizer
+        baked = [*model.parameters(),
+                 *(opt.state[p][f] for g in opt.param_groups for p in g["params"]
+                   for f in ("mu", "nu")),
+                 *itertools.chain.from_iterable(opt._scalars)]
+        return (tuple(t.data_ptr() for t in baked),
+                tuple((k, tuple(v.shape), v.dtype, v.device) for k, v in sorted(batch.items())),
+                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+
+    def _bind(self, state: TrainState, batch) -> bool:
+        """Whether the calls so far were under this state and batch's binding;
+        if not, the graph is dropped and this binding starts anew."""
+        key = self._key(state, batch)
+        if (self.owner is not None and self.owner[0]() is state.model
+                and self.owner[1]() is state.optimizer and key == self.key):
+            return True
+        self._drop()
+        self.owner = (weakref.ref(state.model), weakref.ref(state.optimizer))
+        self.key, self.calls = key, 0
+        return False
+
+    def _drop(self) -> None:
+        for ev in self.done or ():
+            ev.synchronize()  # no replay of the graph is left in flight
+        self.graph = self.inputs = self.out = None
+
+    def _warm_up(self, state: TrainState, batch) -> Dict:
+        here = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            metrics = self.eager(state, batch)
+        here.wait_stream(side)
+        return metrics
+
+    def _capture(self, state: TrainState, batch) -> None:
+        model, opt = state.model, state.optimizer
+        self.inputs = {k: torch.empty_like(v) for k, v in batch.items()}
+        opt.zero_grad(set_to_none=True)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, capture_error_mode="thread_local"):
+            self.out = self.forward_backward(model, self.inputs)
+            opt.update()
+        self.graph = g
+        profiling.count("train.graph_captures")
+
+    def __call__(self, state: TrainState, batch) -> Dict:
+        self._bind(state, batch)
+        self.calls += 1
+        if self.graph is None and self.calls < self.CAPTURE_AT:
+            return self._warm_up(state, batch)
+        if self.done is None:
+            self.done = [torch.cuda.Event(blocking=True) for _ in range(self.AHEAD)]
+        ring = self.done[self.n % self.AHEAD]
+        ring.synchronize()  # the step AHEAD before this one has finished
+        if self.graph is None:
+            self._capture(state, batch)
+        for k, v in batch.items():
+            self.inputs[k].copy_(v)
+        state.optimizer.begin_step()
+        self.graph.replay()
+        metrics = {k: v.clone() for k, v in self.out.items()}
+        ring.record()
+        self.n += 1
+        profiling.count("train.graph_replays")
+        return metrics
+
+
 def make_train_step(
     loss_weights: LossWeights = LossWeights(),
     policy: Policy = F32,
     mesh=None,
+    graph: bool = True,
 ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """step(state, batch) -> (state, metrics): forward over the 4B window
     rows, the temporal loss, backward, one TFAdam update in place. The batch
@@ -228,12 +338,16 @@ def make_train_step(
     axis, the port's form of the JAX step on a sharded batch: `batch` holds
     this rank's rows (core/mesh.shard_batch), the gradients are averaged
     over the axis before the update and the metrics are the axes' means,
-    i.e. the global batch's values (every term is a mean over the batch)."""
+    i.e. the global batch's values (every term is a mean over the batch).
 
-    def step_fn(state: TrainState, batch: Batch):
-        model, opt = state.model, state.optimizer
-        batch = batch_to_device(batch, device_of(model))
-        opt.zero_grad(set_to_none=True)
+    On a CUDA model without a mesh the step is one CUDA graph (`_StepGraph`,
+    as pwc_trainer.make_pwc_train_step's): the first two calls run eagerly,
+    the third captures forward, loss, backward and the TFAdam update, and
+    later calls with the same state and batch shapes replay it. `graph=False`
+    keeps every call eager. Each call counts one `train.fisr_steps`
+    (utils/profiling)."""
+
+    def forward_backward(model, batch) -> Dict[str, torch.Tensor]:
         pred_groups, pred_ss2 = forward_windows(model, batch, policy)
         gt = _gt_pyramid(batch["label"])
         total, metrics = temporal_loss(pred_groups, pred_ss2, gt, loss_weights)
@@ -241,12 +355,29 @@ def make_train_step(
             ovlp = groups_to_overlap(pred_groups[0])
             metrics["train_PSNR"] = torch.mean(psnr_image(ovlp, gt[0]))
         total.backward()
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def eager(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
+        model, opt = state.model, state.optimizer
+        opt.zero_grad(set_to_none=True)
+        metrics = forward_backward(model, batch)
         if mesh is not None:
             average_gradients_(model.parameters(), mesh)
             metrics = mean_metrics(metrics, mesh)
         opt.step()
+        return metrics
+
+    graphed = _StepGraph(forward_backward, eager) if graph and mesh is None else None
+
+    def step_fn(state: TrainState, batch: Batch):
+        dev = device_of(state.model)
+        batch = batch_to_device(batch, dev)
+        if graphed is not None and dev.type == "cuda":
+            metrics = graphed(state, batch)
+        else:
+            metrics = eager(state, batch)
         state.step += 1
+        profiling.count("train.fisr_steps")
         return state, metrics
 
     return step_fn
